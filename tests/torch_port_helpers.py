@@ -1,0 +1,73 @@
+"""Shared helpers for the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Both packages get the same weights: the reference state dict fixture goes
+through the JAX importer, and the JAX parameter tree through the port's
+``from_jax_params``. Configs are converted field by field from the JAX
+dataclasses, so a test names one config for both sides.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from tests.conftest import require_fixture
+from tests.test_parity import MINI
+from us_video_medsam2_tpu_torch.core import config as port_config_mod
+from us_video_medsam2_tpu_torch.core.weights import from_jax_params
+from us_video_medsam2_tpu_torch.models.sam2 import SAM2Model as TorchSAM2Model
+
+torch.set_num_threads(1)
+
+
+def port_config(jcfg) -> port_config_mod.SAM2Config:
+    """The port's SAM2Config with every field the port has taken from ``jcfg``."""
+
+    def conv(cls, obj):
+        kw = {}
+        for f in dataclasses.fields(cls):
+            v = getattr(obj, f.name)
+            if dataclasses.is_dataclass(v):
+                v = conv(type(getattr(cls(), f.name)), v)
+            kw[f.name] = v
+        return cls(**kw)
+
+    assert jcfg.vitdet is None and jcfg.temporal_fusion.variant == "none"
+    assert jcfg.memory_attention.efficient_pool_size == 0
+    return conv(port_config_mod.SAM2Config, jcfg)
+
+
+@functools.lru_cache(maxsize=1)
+def mini_weights():
+    """(JAX params, port state_dict) for the MINI config, from the reference fixture."""
+    from us_video_medsam2_tpu.core.import_torch import convert_reference_state_dict
+
+    sd = dict(np.load(require_fixture("mini_state_dict.npz")))
+    params = convert_reference_state_dict(sd, MINI)
+    return params, from_jax_params(params, port_config(MINI))
+
+
+def mini_port_model() -> TorchSAM2Model:
+    _, psd = mini_weights()
+    model = TorchSAM2Model(port_config(MINI))
+    model.load_state_dict(psd, strict=True)
+    return model.eval()
+
+
+def nchw_to_nhwc(x) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(np.asarray(x), (0, 2, 3, 1)))
+
+
+def t(x) -> torch.Tensor:
+    """numpy / JAX array -> torch tensor (CPU)."""
+    return torch.from_numpy(np.array(x))
+
+
+def n(x) -> np.ndarray:
+    """torch tensor / JAX array -> float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)

@@ -1,0 +1,41 @@
+"""Image / coordinate transforms for inference (reference sam2/utils/transforms.py).
+
+Counterpart of the JAX package's ``inference/transforms.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from us_video_medsam2_tpu_torch.ops.resize import resize2d
+
+IMG_MEAN = (0.485, 0.456, 0.406)
+IMG_STD = (0.229, 0.224, 0.225)
+
+
+def preprocess_images(images: torch.Tensor, image_size: int) -> torch.Tensor:
+    """uint8/float [T, H, W, 3] -> normalized f32 [T, S, S, 3]."""
+    x = images.float()
+    if images.dtype == torch.uint8:
+        x = x / 255.0
+    if x.shape[-3] != image_size or x.shape[-2] != image_size:
+        x = resize2d(x, (image_size, image_size))
+    mean = torch.tensor(IMG_MEAN, device=x.device)
+    std = torch.tensor(IMG_STD, device=x.device)
+    return (x - mean) / std
+
+
+def transform_coords(coords, orig_hw: tuple[int, int], image_size: int) -> np.ndarray:
+    """Scale (x, y) pixel coords from the original resolution to the model's."""
+    h, w = orig_hw
+    out = np.asarray(coords, np.float32).copy()
+    out[..., 0] *= image_size / w
+    out[..., 1] *= image_size / h
+    return out
+
+
+def transform_boxes(boxes, orig_hw: tuple[int, int], image_size: int) -> np.ndarray:
+    """[..., 4] XYXY boxes -> [..., 2, 2] corner points at model resolution."""
+    boxes = np.asarray(boxes, np.float32)
+    return transform_coords(boxes.reshape(*boxes.shape[:-1], 2, 2), orig_hw, image_size)

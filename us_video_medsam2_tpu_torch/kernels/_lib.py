@@ -1,0 +1,132 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Every ``.cu`` file is compiled for ``sm_90a`` by its own ``nvcc`` process (all
+started together), then linked into one shared library with a plain C
+interface that is loaded with ``ctypes``. The build runs at first use, from
+the sources in the checkout only, into ``build/`` at the repository root; the
+library name carries a hash of the sources and flags, so an edit rebuilds.
+
+Each C entry point takes device pointers and a ``cudaStream_t`` as
+``c_void_p``, launches on that stream, allocates nothing, and returns
+``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lib = None
+_fns: dict = {}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+        shutil.which("nvcc") or "",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libus_medsam2_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(log=None) -> Path:
+    """Compile and link the kernels if the library for these sources is
+    missing; returns its path. ``log`` receives the compiler's messages
+    (register and shared-memory use from ``-Xptxas -v``)."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        objs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+            objs.append(obj)
+        failed = []
+        for src, p in procs:
+            msg, _ = p.communicate()
+            if log is not None:
+                log(f"[nvcc {src.name}]\n{msg}")
+            if p.returncode != 0:
+                failed.append(f"{src.name}:\n{msg}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so_tmp = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(so_tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(so_tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.usm_error_string.argtypes = [ctypes.c_int]
+        lib.usm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def fn(name: str, argtypes: list):
+    """The C entry point ``name`` with its argument types set."""
+    f = _fns.get(name)
+    if f is None:
+        f = getattr(load(), name)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _fns[name] = f
+    return f
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = load().usm_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float

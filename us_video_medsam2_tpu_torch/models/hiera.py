@@ -1,0 +1,151 @@
+"""Hiera trunk (reference sam2/modeling/backbones/hieradet.py:169-317), NHWC.
+
+Counterpart of the JAX package's ``models/hiera.py``. Per block: norm1 through
+the LayerNorm kernel, the qkv projection as one Linear over the map, windowed
+attention through the window-attention kernel (global blocks use the plain
+attention, as the JAX package does), the output projection, and the
+LN -> MLP -> residual tail through its kernel. The JAX package's 128-lane
+head-dim padding exists only for the TPU and is not carried over.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from us_video_medsam2_tpu_torch.core.config import HieraConfig
+from us_video_medsam2_tpu_torch.kernels.layer_norm import layer_norm
+from us_video_medsam2_tpu_torch.kernels.ln_mlp_residual import ln_mlp_residual
+from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention
+from us_video_medsam2_tpu_torch.models.layers import MLP, LayerNorm, Linear, NHWCConv
+from us_video_medsam2_tpu_torch.ops.attention import attention_plain
+from us_video_medsam2_tpu_torch.ops.resize import resize2d
+
+
+def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 / stride-2 max pool over [B, H, W, C]."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+class MultiScaleAttention(nn.Module):
+    """Windowed MHSA with optional q max-pooling (reference hieradet.py:39-81)."""
+
+    def __init__(self, dim: int, dim_out: int, num_heads: int, q_pool: bool):
+        super().__init__()
+        self.dim_out, self.num_heads, self.q_pool = dim_out, num_heads, q_pool
+        self.qkv = Linear(dim, 3 * dim_out)
+        self.proj = Linear(dim_out, dim_out)
+
+    def forward(self, x: torch.Tensor, window_size: int) -> torch.Tensor:
+        b, h, w, _ = x.shape
+        nh = self.num_heads
+        hd = self.dim_out // nh
+        qkv = self.qkv(x)
+        if window_size == 0:
+            qkv = qkv.reshape(b, h * w, 3, nh, hd)
+            q = qkv[:, :, 0]
+            if self.q_pool:
+                q = max_pool_2x(q.reshape(b, h, w, nh * hd))
+                h, w = q.shape[1:3]
+                q = q.reshape(b, h * w, nh, hd)
+            k, v = qkv[:, :, 1], qkv[:, :, 2]
+            o = attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+            out = o.transpose(1, 2).reshape(b, h, w, nh * hd)
+        else:
+            ws = window_size
+            pad_h, pad_w = (ws - h % ws) % ws, (ws - w % ws) % ws
+            if pad_h or pad_w:
+                # the reference zero-pads the tokens before the projection, so
+                # pad tokens carry the projection bias; they are attended
+                full = self.qkv.bias.to(qkv.dtype).expand(b, h + pad_h, w + pad_w, -1).clone()
+                full[:, :h, :w] = qkv
+                qkv = full
+            o = window_attention(qkv.contiguous(), ws, nh, self.q_pool)
+            ho, wo = (h // 2, w // 2) if self.q_pool else (h, w)
+            out = o[:, :ho, :wo]
+        return self.proj(out)
+
+
+class MultiScaleBlock(nn.Module):
+    """Hiera block (reference hieradet.py:84-166)."""
+
+    def __init__(self, dim, dim_out, num_heads, window_size, q_stride, mlp_ratio):
+        super().__init__()
+        self.dim, self.dim_out = dim, dim_out
+        self.window_size = window_size
+        self.q_stride = q_stride
+        self.norm1 = LayerNorm(dim, eps=1e-6)
+        if dim != dim_out:
+            self.proj = Linear(dim, dim_out)
+        self.attn = MultiScaleAttention(dim, dim_out, num_heads, q_pool=q_stride is not None)
+        self.norm2 = LayerNorm(dim_out, eps=1e-6)
+        self.mlp = MLP(dim_out, int(dim_out * mlp_ratio), dim_out, 2, activation="gelu")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = x
+        x = layer_norm(x.contiguous(), self.norm1.weight, self.norm1.bias, 1e-6)
+        if self.dim != self.dim_out:
+            shortcut = self.proj(x)
+            if self.q_stride:
+                shortcut = max_pool_2x(shortcut)
+        x = shortcut + self.attn(x, self.window_size)
+        b, h, w, c = x.shape
+        out = ln_mlp_residual(
+            x.reshape(b * h * w, c),
+            self.norm2.weight, self.norm2.bias,
+            self.mlp.layers_0.weight, self.mlp.layers_0.bias,
+            self.mlp.layers_1.weight, self.mlp.layers_1.bias,
+            1e-6,
+        )
+        return out.reshape(b, h, w, c)
+
+
+class Hiera(nn.Module):
+    """Trunk producing one feature map per stage, high -> low resolution."""
+
+    def __init__(self, cfg: HieraConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.patch_embed = NHWCConv(3, cfg.embed_dim, cfg.patch_kernel,
+                                    cfg.patch_stride, cfg.patch_padding)
+        bh, bw = cfg.window_pos_embed_bkg_spatial_size
+        win = cfg.window_spec[0]
+        self.pos_embed = nn.Parameter(torch.zeros(1, bh, bw, cfg.embed_dim))
+        self.pos_embed_window = nn.Parameter(torch.zeros(1, win, win, cfg.embed_dim))
+
+        depth = sum(cfg.stages)
+        self.stage_ends = [sum(cfg.stages[: i + 1]) - 1 for i in range(len(cfg.stages))]
+        q_pool_blocks = [e + 1 for e in self.stage_ends[:-1]][: cfg.q_pool]
+        dim, num_heads, cur_stage = cfg.embed_dim, cfg.num_heads, 1
+        self.depth = depth
+        for i in range(depth):
+            dim_out = dim
+            # the window size is read before the stage advances: a q-pool
+            # block keeps the previous stage's window
+            window_size = cfg.window_spec[cur_stage - 1]
+            if cfg.global_att_blocks and i in cfg.global_att_blocks:
+                window_size = 0
+            if i - 1 in self.stage_ends:
+                dim_out = int(dim * cfg.dim_mul)
+                num_heads = int(num_heads * cfg.head_mul)
+                cur_stage += 1
+            self.add_module(f"blocks_{i}", MultiScaleBlock(
+                dim, dim_out, num_heads, window_size,
+                cfg.q_stride if i in q_pool_blocks else None, cfg.mlp_ratio,
+            ))
+            dim = dim_out
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        x = self.patch_embed(x)
+        h, w = x.shape[1:3]
+        win = self.cfg.window_spec[0]
+        pe = resize2d(self.pos_embed.float(), (h, w), mode="cubic")
+        pe = pe + self.pos_embed_window.float().repeat(1, h // win, w // win, 1)
+        x = (x + pe.to(x.dtype)).contiguous()
+        outputs = []
+        for i in range(self.depth):
+            x = getattr(self, f"blocks_{i}")(x)
+            if i in self.stage_ends:
+                outputs.append(x)
+        return outputs

@@ -1,0 +1,110 @@
+"""Attention modules and the SAM two-way transformer (reference sam/transformer.py:44-360).
+
+Counterpart of the JAX package's ``models/transformer.py``, batch-first
+[B, N, C]. ``Attention`` (mask decoder) uses the plain attention, as the JAX
+package does at these token counts; ``RoPEAttention`` (memory attention)
+goes through ``ops.attention.sdpa``, the flash kernel on the card. Landmark
+pooling and attention dropout are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from us_video_medsam2_tpu_torch.models.layers import MLP, LayerNorm, Linear
+from us_video_medsam2_tpu_torch.ops.attention import attention_plain, sdpa
+from us_video_medsam2_tpu_torch.ops.posenc import apply_rope_halfsplit
+
+
+def _heads(x: torch.Tensor, nh: int) -> torch.Tensor:
+    b, n, c = x.shape
+    return x.reshape(b, n, nh, c // nh).transpose(1, 2)
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d)
+
+
+class Attention(nn.Module):
+    """Multi-head attention with optional internal downsampling (transformer.py:215-287)."""
+
+    def __init__(self, embedding_dim, num_heads, downsample_rate=1, kv_in_dim=None):
+        super().__init__()
+        internal = embedding_dim // downsample_rate
+        kv = kv_in_dim or embedding_dim
+        self.num_heads = num_heads
+        self.q_proj = Linear(embedding_dim, internal)
+        self.k_proj = Linear(kv, internal)
+        self.v_proj = Linear(kv, internal)
+        self.out_proj = Linear(internal, embedding_dim)
+
+    def forward(self, q, k, v):
+        nh = self.num_heads
+        out = attention_plain(_heads(self.q_proj(q), nh), _heads(self.k_proj(k), nh),
+                              _heads(self.v_proj(v), nh))
+        return self.out_proj(_merge(out))
+
+
+class RoPEAttention(Attention):
+    """Attention with axial RoPE on q and k (transformer.py:289-360). The key
+    tables arrive already extended over repeated memory slots and over the
+    unrotated object-pointer keys (``ops.posenc.rope_key_tables``)."""
+
+    def forward(self, q, k, v, rope_q, rope_k, key_mask=None):
+        nh = self.num_heads
+        q = apply_rope_halfsplit(_heads(self.q_proj(q), nh), *rope_q)
+        k = apply_rope_halfsplit(_heads(self.k_proj(k), nh), *rope_k)
+        out = sdpa(q, k, _heads(self.v_proj(v), nh), key_mask)
+        return self.out_proj(_merge(out))
+
+
+class TwoWayAttentionBlock(nn.Module):
+    """Sparse self-attn, sparse->dense cross, MLP, dense->sparse cross (transformer.py:137-212)."""
+
+    def __init__(self, dim, num_heads, mlp_dim, downsample_rate, skip_first_layer_pe):
+        super().__init__()
+        self.skip_first_layer_pe = skip_first_layer_pe
+        self.self_attn = Attention(dim, num_heads)
+        self.cross_attn_token_to_image = Attention(dim, num_heads, downsample_rate)
+        self.cross_attn_image_to_token = Attention(dim, num_heads, downsample_rate)
+        self.mlp = MLP(dim, mlp_dim, dim, 2, activation="relu")
+        for i in range(1, 5):
+            self.add_module(f"norm{i}", LayerNorm(dim, eps=1e-5))
+
+    def forward(self, queries, keys, query_pe, key_pe):
+        if self.skip_first_layer_pe:
+            queries = self.self_attn(queries, queries, queries)
+        else:
+            q = queries + query_pe
+            queries = queries + self.self_attn(q, q, queries)
+        queries = self.norm1(queries)
+        q, k = queries + query_pe, keys + key_pe
+        queries = self.norm2(queries + self.cross_attn_token_to_image(q, k, keys))
+        queries = self.norm3(queries + self.mlp(queries))
+        q, k = queries + query_pe, keys + key_pe
+        keys = self.norm4(keys + self.cross_attn_image_to_token(k, q, queries))
+        return queries, keys
+
+
+class TwoWayTransformer(nn.Module):
+    """Depth-2 token <-> image decoder transformer (transformer.py:44-134)."""
+
+    def __init__(self, depth=2, embedding_dim=256, num_heads=8, mlp_dim=2048, downsample_rate=2):
+        super().__init__()
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"layers_{i}", TwoWayAttentionBlock(
+                embedding_dim, num_heads, mlp_dim, downsample_rate, skip_first_layer_pe=(i == 0)
+            ))
+        self.final_attn_token_to_image = Attention(embedding_dim, num_heads, downsample_rate)
+        self.norm_final_attn = LayerNorm(embedding_dim, eps=1e-5)
+
+    def forward(self, image_embedding, image_pe, point_embedding):
+        queries, keys = point_embedding, image_embedding
+        for i in range(self.depth):
+            queries, keys = getattr(self, f"layers_{i}")(queries, keys, point_embedding, image_pe)
+        q, k = queries + point_embedding, keys + image_pe
+        queries = self.norm_final_attn(queries + self.final_attn_token_to_image(q, k, keys))
+        return queries, keys
