@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version and, where one PyTorch call computes the same function, that
    call (``library_ms``); the
    bound is max(bytes / 3.35 TB/s, flops / peak) from the shapes (bf16 tensor
-   peak 989 TFLOP/s for products, 67 TFLOP/s f32 for LayerNorm);
+   peak 989 TFLOP/s for products, 67 TFLOP/s f32 for LayerNorm); then each
+   kernel once more at shapes off the main path (ragged tiles, batch and
+   heads above 1, a fully masked batch), against the same tolerance;
 4. the main path: ``sam2.1_hiera_t512`` at full width in bf16 on the card with
    weights from a seeded generator (the object-score head's output bias is
    set to +10 so the object is present on every frame and the masks are not
@@ -240,6 +242,26 @@ def check_kernels(g) -> dict:
         r.add([lq, lk, 256, m is not None], cnt, err, time_ms(lambda: flash_attention(q, k, v, m)),
               time_ms(lambda: flash_attention_plain(q, k, v, m)), bnd, by,
               time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)))
+
+    # once more, untimed, at shapes off the main path that the wrappers take:
+    # ragged last tiles, batch and heads above 1, a batch whose keys are all masked
+    log("edge shapes (bf16, untimed)")
+    x = rn(1005, 384)
+    w, b = 1.0 + rn(384, scale=0.1, dtype=torch.float32), rn(384, scale=0.1, dtype=torch.float32)
+    compare("layer_norm (1005,384)", layer_norm(x, w, b), layer_norm_plain(x, w, b))
+    x = rn(1000, 192)
+    args = (x, w[:192], b[:192], rn(768, 192, scale=192**-0.5), rn(768, scale=0.1, dtype=torch.float32),
+            rn(192, 768, scale=768**-0.5), rn(192, scale=0.1, dtype=torch.float32))
+    compare("ln_mlp_residual (1000,192,768)", ln_mlp_residual(*args), ln_mlp_residual_plain(*args))
+    for shape, ws, nh, pool in (((2, 28, 42), 14, 2, True), ((2, 14, 21), 7, 3, False)):
+        qkv = rn(*shape, 3 * nh * HD)
+        compare(f"window_attention B{shape[0]} {shape[1]}x{shape[2]} ws{ws} nh{nh} pool={pool}",
+                window_attention(qkv, ws, nh, pool), window_attention_plain(qkv, ws, nh, pool))
+    q, k, v = rn(2, 2, 1000, 256), rn(2, 2, 1100, 256), rn(2, 2, 1100, 256)
+    mask = torch.rand(2, 1100, generator=g, device=dev) > 0.3
+    mask[1] = False
+    compare("flash_attention B2 H2 q1000 k1100, batch 1 all masked", flash_attention(q, k, v, mask),
+            flash_attention_plain(q, k, v, mask))
     return rows
 
 

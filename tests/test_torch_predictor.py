@@ -112,7 +112,7 @@ def test_predictor_matches_jax_predictor(fx):
 
 
 def test_smoke_script_main_path_on_cpu(monkeypatch):
-    """chip_smoke.py's main-path driver at tiny64 on the CPU, and its refusal
+    """chip_smoke.py's main-path run at tiny64 on the CPU, and its refusal
     to run without a card."""
     import torch
 

@@ -207,10 +207,6 @@ extern "C" int usm_flash_attention_bf16(const void* q, const void* k, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || lq <= 0) return cudaSuccess;
   if (lk <= 0 || h <= 0) return cudaErrorInvalidValue;
-  switch (d) {
-    case 64: return launch<64>(q, k, v, mask, out, bh, h, lq, lk, scale, s);
-    case 128: return launch<128>(q, k, v, mask, out, bh, h, lq, lk, scale, s);
-    case 256: return launch<256>(q, k, v, mask, out, bh, h, lq, lk, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (d != 256) return cudaErrorInvalidValue;  // the memory attention's d_model, one head
+  return launch<256>(q, k, v, mask, out, bh, h, lq, lk, scale, s);
 }

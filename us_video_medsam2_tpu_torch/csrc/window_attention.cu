@@ -214,10 +214,6 @@ extern "C" int usm_window_attention_bf16(const void* qkv, void* out, int b, int 
   if (ws <= 0 || ws > MAX_WS || hp % ws || wp % ws || (q_pool && ws % 2))
     return cudaErrorInvalidValue;
   if (b <= 0 || hp <= 0 || wp <= 0) return cudaSuccess;
-  switch (hd) {
-    case 64: return launch<64>(qkv, out, b, hp, wp, ws, nh, q_pool, scale, s);
-    case 96: return launch<96>(qkv, out, b, hp, wp, ws, nh, q_pool, scale, s);
-    case 128: return launch<128>(qkv, out, b, hp, wp, ws, nh, q_pool, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (hd != 96) return cudaErrorInvalidValue;  // Hiera-tiny's head width at every stage
+  return launch<96>(qkv, out, b, hp, wp, ws, nh, q_pool, scale, s);
 }

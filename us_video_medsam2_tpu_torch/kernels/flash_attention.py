@@ -24,7 +24,7 @@ import torch
 
 from us_video_medsam2_tpu_torch.kernels import _lib
 
-SUPPORTED_D = (64, 128, 256)
+SUPPORTED_D = (256,)
 NEG_INF = -1e30
 
 

@@ -28,10 +28,6 @@ SUPPORTED_D = (96, 192, 384, 768)
 F_CHUNK = 128
 
 
-def gelu_erf(x: torch.Tensor) -> torch.Tensor:
-    return x * 0.5 * (1.0 + torch.erf(x * (2.0**-0.5)))
-
-
 def ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6):
     """Plain PyTorch version over x [N, D]; w1 [F, D], w2 [D, F] (Linear layout).
     Products run in f32 on the rounded operands, as f32-accumulating
@@ -41,7 +37,7 @@ def ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6):
     var = (xf - mean).square().mean(-1, keepdim=True)
     y = ((xf - mean) * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()).to(x.dtype)
     h = (F.linear(y.float(), w1.to(x.dtype).float()) + b1.float()).to(x.dtype)
-    h = gelu_erf(h.float()).to(x.dtype)
+    h = F.gelu(h.float(), approximate="none").to(x.dtype)
     o = (F.linear(h.float(), w2.to(x.dtype).float()) + b2.float()).to(x.dtype)
     return x + o
 

@@ -26,7 +26,7 @@ import torch
 
 from us_video_medsam2_tpu_torch.kernels import _lib
 
-SUPPORTED_HD = (64, 96, 128)
+SUPPORTED_HD = (96,)
 MAX_WS = 14
 
 

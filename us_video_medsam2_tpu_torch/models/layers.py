@@ -14,6 +14,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from us_video_medsam2_tpu_torch.kernels.layer_norm import layer_norm_plain
+
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
@@ -41,11 +43,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = torch.clamp(xf.square().mean(-1, keepdim=True) - mean.square(), min=0.0)
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+        return layer_norm_plain(x, self.weight, self.bias, self.eps)
 
 
 class MLP(nn.Module):

@@ -24,10 +24,6 @@ class MemoryBank:
     valid: torch.Tensor  # [B, S] bool
     is_cond: torch.Tensor  # [B, S] bool
 
-    @property
-    def num_slots(self) -> int:
-        return self.maskmem.shape[1]
-
     def rows(self, start: int, stop: int) -> "MemoryBank":
         """View of object rows [start, stop)."""
         return MemoryBank(self.maskmem[start:stop], self.obj_ptr[start:stop],
