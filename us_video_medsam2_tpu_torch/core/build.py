@@ -15,14 +15,11 @@ from us_video_medsam2_tpu_torch.models.sam2 import SAM2Model
 
 
 def build_sam2(config: str | SAM2Config = "sam2.1_hiera_t512", state_dict=None, seed: int = 0,
-               apply_postprocessing: bool = True, **overrides) -> SAM2Model:
+               **overrides) -> SAM2Model:
     """f32 SAM2Model on the CPU; weights from ``state_dict`` (strict) or ``seed``."""
-    cfg = resolve_config(config)
-    if apply_postprocessing:
-        overrides.setdefault("dynamic_multimask_via_stability", True)
-        overrides.setdefault("binarize_mask_from_pts_for_mem_enc", True)
-    if overrides:
-        cfg = dataclasses.replace(cfg, **overrides)
+    overrides.setdefault("dynamic_multimask_via_stability", True)
+    overrides.setdefault("binarize_mask_from_pts_for_mem_enc", True)
+    cfg = dataclasses.replace(resolve_config(config), **overrides)
     model = SAM2Model(cfg)
     if state_dict is None:
         init_random_(model, seed)

@@ -219,11 +219,8 @@ class SAM2VideoPredictor:
             feats = {k: v.expand(o, -1, -1, -1) for k, v in self._encode_frame(state, t).items()}
             out, _ = self.model.track_step(
                 t, feats, bank, nf, multimask_output=True, track_in_reverse=reverse,
-                write_bank=False, max_cond_slots=mcs,
+                max_cond_slots=mcs,
             )
-            bank.maskmem[:, t] = out["maskmem"].to(bank.maskmem.dtype)
-            bank.obj_ptr[:, t] = out["obj_ptr"].to(bank.obj_ptr.dtype)
-            bank.valid[:, t] = True
             low = out["low_res_masks"][:, 0]
             if self.fill_hole_area > 0:
                 low = fill_holes_in_mask_scores(low, self.fill_hole_area)

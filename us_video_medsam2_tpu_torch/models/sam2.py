@@ -252,12 +252,12 @@ class SAM2Model(nn.Module):
                    point_coords=None, point_labels=None, mask_inputs=None,
                    is_init_cond_frame=False, is_cond_frame=False,
                    multimask_output=False, track_in_reverse=False, run_mem_encoder=True,
-                   write_bank=True, max_cond_slots=None):
+                   max_cond_slots=None):
         """One tracking step (sam2_base.py:1586-1651), eval mode.
 
         feats: {'top': [B, Hc, Wc, C], 's0', 's1': decoder-projected high-res
-        features}. write_bank=False returns the memory in out['maskmem']
-        without writing it. Returns (out dict, bank)."""
+        features}. With the memory encoder on, the frame's memory is written
+        into ``bank`` in place. Returns (out dict, bank)."""
         c = self.cfg
         hr = [feats["s0"], feats["s1"]] if c.use_high_res_features_in_sam else None
         if mask_inputs is not None and c.use_mask_input_as_output_without_sam:
@@ -275,10 +275,8 @@ class SAM2Model(nn.Module):
                                          out["object_score_logits"],
                                          is_mask_from_pts=point_coords is not None)
             b, hm, wm, md = maskmem.shape
-            out["maskmem"] = maskmem.reshape(b, hm * wm, md)
-            if write_bank:
-                write_memory(bank, frame_idx, out["maskmem"], out["obj_ptr"],
-                             is_cond_frame or is_init_cond_frame)
+            write_memory(bank, frame_idx, maskmem.reshape(b, hm * wm, md), out["obj_ptr"],
+                         is_cond_frame or is_init_cond_frame)
         return out, bank
 
 
