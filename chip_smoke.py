@@ -15,9 +15,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    bound is max(bytes / 3.35 TB/s, flops / peak) from the shapes (bf16 tensor
    peak 989 TFLOP/s for products, 67 TFLOP/s f32 for LayerNorm); the
    attention checks are scaled to the output, and the flash check must reject
-   the plain version run with the 24 valid pointer keys masked; then each
-   kernel once more at shapes off the main path (ragged tiles, batch and
-   heads above 1, a fully masked batch), against the same tolerance;
+   the plain version run with the 24 valid pointer keys masked. LayerNorm,
+   MLP and window attention are held again, untimed, at the training path's
+   shapes (one encoder call over T·B = 4 frames); each kernel once more at
+   shapes off the main path (ragged tiles, batch and heads above 1, a fully
+   masked batch), against the same tolerance. The gradient of each of these
+   four wrappers (the kernel forward, the plain version's vjp recomputed) is
+   held against autograd of the plain version at a training shape, and its
+   backward must launch no kernel. The
+   dropout flash kernels are held against the plain version and autograd of
+   it (out, lse, dq, dk, dv) at the training path's memory self- and
+   cross-attention shapes, at rates 0.1 and 0, with a check that must reject
+   the plain version run with seed + 1, at edge shapes, and where the keep
+   hash's element index passes 2^31 and 2^32;
 4. the main path: ``sam2.1_hiera_t512`` at full width in bf16 on the card with
    weights from a seeded generator (the object-score head's output bias is
    set to +10 so the object is present on every frame and the masks are not
@@ -28,7 +38,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches per encoded frame and 8 flash launches per tracked frame. The
    first frames are run again on the host CPU (plain versions, f32) with the
    same weights and compared per frame;
-5. the kernels line, the card line, and the device line last.
+5. the training path: the ``sam2.1_hiera_t512`` training step at full width
+   (T = 4 frames, B = 1 video, O = 3 objects, ``TrainSimConfig()``, temporal
+   consistency loss 0.5, AdamW with layer decay) in bf16 with f32 master
+   weights on a seeded batch of moving blobs and their masks: one warm-up
+   step, then ``TRAIN_STEPS`` timed steps with finite loss and gradient
+   norm, a non-zero gradient in every parameter group, and exact launch
+   counts (9 window-attention, 12 LayerNorm and 12 MLP per step, 8 dropout
+   flash forward and 8 backward per tracked frame). Then one step with a
+   fixed plan and memory-attention dropout off on the card and on the host
+   CPU (plain versions, f32): loss and whole-gradient agreement;
+6. the kernels line, the card line, and the device line last.
 
 Exits non-zero without a result when no CUDA device is present or when the
 port's package is not beside this script.
@@ -63,14 +83,33 @@ ATTN_REL_L2_TOL = 1e-2
 LOGIT_REL_L2_TOL = 0.1
 SIGN_BAND = 0.05
 MASK_IOU_TOL = 0.99
+# dropout flash kernels vs the plain version (bf16). out: as attention above.
+# lse: the log of the same f32 sums taken in another order, |d| ~ 1e-6; an
+# error of LSE_TOL would scale every recomputed probability by 1%, the size of
+# a bf16 rounding. dq/dk/dv: the kernels round dS to bf16 before the dq and dk
+# products (as the JAX kernel does) and take delta from the bf16 output, which
+# autograd of the plain version does not: ~0.3% rel-L2 apart on random
+# inputs, so GRAD_REL_L2_TOL leaves about 6x room, and GRAD_MAX_TOL bounds
+# any one element against the gradient's own scale.
+LSE_TOL = 1e-2
+GRAD_REL_L2_TOL = 2e-2
+GRAD_MAX_TOL = 0.05
+# training step, card bf16 vs host f32 (one step, fixed plan, no dropout):
+# bf16 end to end moves the loss by ~1% and the gradient by a few percent.
+LOSS_REL_TOL = 2e-2
+GRAD_VS_HOST_REL_L2_TOL = 0.1
 
 REPLACES = {
     "layer_norm": "us_video_medsam2_tpu/kernels/fused_ln.py:54",
     "ln_mlp_residual": "us_video_medsam2_tpu/kernels/fused_mlp.py:129",
     "window_attention": "us_video_medsam2_tpu/kernels/fused_window_attention.py:314",
     "flash_attention": "us_video_medsam2_tpu/kernels/flash_attention.py:113",
+    "flash_dropout_fwd": "us_video_medsam2_tpu/kernels/flash_dropout.py:276",
+    "flash_dropout_bwd": "us_video_medsam2_tpu/kernels/flash_dropout.py:337",
 }
-SOURCE = "us_video_medsam2_tpu_torch/csrc/{}.cu"
+SOURCES = {k: f"us_video_medsam2_tpu_torch/csrc/{k}.cu" for k in REPLACES}
+SOURCES["flash_dropout_fwd"] = SOURCES["flash_dropout_bwd"] = (
+    "us_video_medsam2_tpu_torch/csrc/flash_dropout.cu")
 
 # main-path shapes of sam2.1_hiera_t512 at 512x512, with launches per frame
 LN_SHAPES = [((16384, 96), 2), ((4096, 192), 2), ((1024, 384), 7), ((256, 768), 1)]
@@ -86,6 +125,17 @@ REPEATS = 3  # timed main-path runs, median kept
 SEED = 0
 PER_ENCODED_FRAME = {"window_attention": 9, "layer_norm": 12, "ln_mlp_residual": 12}
 PER_TRACKED_FRAME = {"flash_attention": 8}
+# the training path
+TRAIN_T = 4
+TRAIN_OBJECTS = 3
+TRAIN_STEPS = 5  # timed steps after one warm-up step
+HOST_T = 4  # frames of the card-vs-host step
+DROPOUT = 0.1  # memory attention (MemoryAttentionConfig.dropout)
+PER_TRAIN_STEP = {"window_attention": 9, "layer_norm": 12, "ln_mlp_residual": 12}  # one batched encoder call
+PER_TRACKED_TRAIN_FRAME = {"flash_dropout_fwd": 8, "flash_dropout_bwd": 8}
+PARAM_GROUPS = {"trunk": "image_encoder.trunk.", "neck": "image_encoder.neck.",
+                "memory attention": "memory_attention.", "memory encoder": "memory_encoder.",
+                "prompt encoder": "sam_prompt_encoder.", "mask decoder": "sam_mask_decoder."}
 
 
 def log(*a):
@@ -167,8 +217,12 @@ class Row:
         self.ops_bound = 0.0
         self.shapes = []
 
-    def add(self, shape, count, err, ms, plain_ms, b, by, lib_ms=None):
+    def check(self, err):
+        """An untimed check's max abs error."""
         self.max_abs = max(self.max_abs, err)
+
+    def add(self, shape, count, err, ms, plain_ms, b, by, lib_ms=None):
+        self.check(err)
         self.ms += count * ms
         self.plain_ms += count * plain_ms
         self.bound += count * b
@@ -205,9 +259,11 @@ def check_kernels(g) -> dict:
     r = rows["layer_norm"] = Row("layer_norm")
     log("layer_norm (fast variance, eps 1e-6)")
     for (n, d), cnt in LN_SHAPES:
-        x = rn(n, d)
         w = 1.0 + rn(d, scale=0.1, dtype=torch.float32)
         b = rn(d, scale=0.1, dtype=torch.float32)
+        x = rn(TRAIN_T * n, d)
+        r.check(compare(f"({TRAIN_T * n},{d}) training", layer_norm(x, w, b), layer_norm_plain(x, w, b)))
+        x = rn(n, d)
         err = compare(f"({n},{d})", layer_norm(x, w, b), layer_norm_plain(x, w, b))
         wb, bb = w.to(bf), b.to(bf)
         bnd, by = bound_ms(4 * n * d + 8 * d, 7 * n * d, F32_FLOPS)
@@ -218,12 +274,14 @@ def check_kernels(g) -> dict:
     r = rows["ln_mlp_residual"] = Row("ln_mlp_residual")
     log("ln_mlp_residual (two-pass LN eps 1e-6, exact GELU)")
     for (n, d, f), cnt in MLP_SHAPES:
-        x = rn(n, d)
         lw = 1.0 + rn(d, scale=0.1, dtype=torch.float32)
         lb = rn(d, scale=0.1, dtype=torch.float32)
         w1, b1 = rn(f, d, scale=d**-0.5), rn(f, scale=0.1, dtype=torch.float32)
         w2, b2 = rn(d, f, scale=f**-0.5), rn(d, scale=0.1, dtype=torch.float32)
-        args = (x, lw, lb, w1, b1, w2, b2)
+        args = (rn(TRAIN_T * n, d), lw, lb, w1, b1, w2, b2)
+        r.check(compare(f"({TRAIN_T * n},{d},{f}) training", ln_mlp_residual(*args),
+                        ln_mlp_residual_plain(*args)))
+        args = (rn(n, d), *args[1:])
         err = compare(f"({n},{d},{f})", ln_mlp_residual(*args), ln_mlp_residual_plain(*args))
         bnd, by = bound_ms(4 * n * d + 4 * d * f + 4 * (f + 3 * d), 4 * n * d * f, BF16_FLOPS)
         r.add([n, d, f], cnt, err, time_ms(lambda: ln_mlp_residual(*args)),
@@ -232,6 +290,10 @@ def check_kernels(g) -> dict:
     r = rows["window_attention"] = Row("window_attention")
     log(f"window_attention (hd {HD}, f32 scores, bf16 P)")
     for (hp, ws, nh, pool), cnt in WIN_SHAPES:
+        qkv = rn(TRAIN_T, hp, hp, 3 * nh * HD)
+        r.check(compare(f"B{TRAIN_T} {hp}^2 ws{ws} nh{nh} pool={pool} training",
+                        window_attention(qkv, ws, nh, pool), window_attention_plain(qkv, ws, nh, pool),
+                        attention=True))
         qkv = rn(1, hp, hp, 3 * nh * HD)
         wso = ws // 2 if pool else ws
         err = compare(f"{hp}^2 ws{ws} nh{nh} pool={pool}", window_attention(qkv, ws, nh, pool),
@@ -295,9 +357,260 @@ def check_kernels(g) -> dict:
     return rows
 
 
+def grad_agreement(got, want) -> tuple[bool, str, float]:
+    """(within tolerance, message, max abs error) of a gradient against its reference."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        return False, "gradient not finite", float("nan")
+    err = (g - w).abs()
+    max_abs, ref_max = err.max().item(), w.abs().max().item()
+    rel_l2 = (err.norm() / w.norm().clamp(min=1e-30)).item()
+    ok = rel_l2 <= GRAD_REL_L2_TOL and max_abs <= GRAD_MAX_TOL * ref_max
+    return ok, (f"max_abs {max_abs:.3e} rel-L2 {rel_l2:.3e} (tol rel-L2 <= {GRAD_REL_L2_TOL}, "
+                f"max |d| <= {GRAD_MAX_TOL} max|ref| = {GRAD_MAX_TOL * ref_max:.3e})"), max_abs
+
+
+def hold_grad(name, wrapper, plain, args, wrt, g) -> None:
+    """The gradient of ``wrapper(*args)`` (the kernel forward, the plain
+    version's vjp recomputed in the backward) against autograd of
+    ``plain(*args)`` for the arguments at indices ``wrt``, with output
+    gradient drawn from ``g``. Raises on a disagreement, or if the backward
+    launched a kernel."""
+    import torch
+
+    def leaves():
+        return [a.detach().clone().requires_grad_(True) if i in wrt else a for i, a in enumerate(args)]
+
+    got, want = leaves(), leaves()
+    out = wrapper(*got)
+    go = torch.randn(out.shape, generator=g, device=out.device).to(out.dtype)
+    before = {k: w.launches for k, w in counters().items()}
+    out.backward(go)
+    torch.cuda.synchronize()
+    after = {k: w.launches for k, w in counters().items()}
+    if after != before:
+        raise AssertionError(f"{name}: the backward launched kernels ({before} -> {after})")
+    plain(*want).backward(go)
+    for i in wrt:
+        ok, msg, _ = grad_agreement(got[i].grad, want[i].grad)
+        log(f"  {name} d(arg {i}): {msg} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: gradient of argument {i} disagrees with autograd of the plain version")
+
+
+def check_kernel_grads(g) -> None:
+    """The wrapper gradient of each forward-only kernel (LayerNorm, MLP,
+    window and flash attention) at one training-path shape (T·B =
+    TRAIN_T frames through the trunk; the memory cross-attention of the
+    fixed-plan step, which runs without dropout), every differentiable
+    argument as in training (f32 LN parameters and biases, bf16 weight
+    matrices)."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from us_video_medsam2_tpu_torch.kernels.layer_norm import layer_norm, layer_norm_plain
+    from us_video_medsam2_tpu_torch.kernels.ln_mlp_residual import ln_mlp_residual, ln_mlp_residual_plain
+    from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
+
+    dev, bf, f32 = "cuda", torch.bfloat16, torch.float32
+
+    def rn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    log("gradients of the wrappers (kernel forward, plain vjp recomputed) vs autograd of the plain "
+        "versions, bf16, training shapes")
+    n, d = TRAIN_T * 4096, 192
+    hold_grad(f"layer_norm ({n},{d})", layer_norm, layer_norm_plain,
+              (rn(n, d), 1.0 + rn(d, scale=0.1, dtype=f32), rn(d, scale=0.1, dtype=f32), 1e-6), (0, 1, 2), g)
+    n, d, f = TRAIN_T * 1024, 384, 1536
+    hold_grad(f"ln_mlp_residual ({n},{d},{f})", ln_mlp_residual, ln_mlp_residual_plain,
+              (rn(n, d), 1.0 + rn(d, scale=0.1, dtype=f32), rn(d, scale=0.1, dtype=f32),
+               rn(f, d, scale=d**-0.5), rn(f, scale=0.1, dtype=f32), rn(d, f, scale=f**-0.5),
+               rn(d, scale=0.1, dtype=f32), 1e-6), tuple(range(7)), g)
+    for hp, ws, nh, pool in ((42, 14, 4, False), (42, 14, 8, True)):
+        hold_grad(f"window_attention B{TRAIN_T} {hp}^2 ws{ws} nh{nh} pool={pool}", window_attention,
+                  window_attention_plain, (rn(TRAIN_T, hp, hp, 3 * nh * HD), ws, nh, pool), (0,), g)
+    mask = train_key_mask(dev)
+    b, lk = mask.shape
+    hold_grad(f"flash_attention q1024 k{lk} masked", flash_attention, flash_attention_plain,
+              (rn(b, 1, 1024, 256), rn(b, 1, lk, 256), rn(b, 1, lk, 256), mask), (0, 1, 2), g)
+
+
+def plain_with_grads(q, k, v, mask, seed, rate, g):
+    """The plain dropout attention's (out, lse) and autograd (dq, dk, dv) for output gradient g."""
+    from us_video_medsam2_tpu_torch.kernels.flash_dropout import flash_attention_train_plain
+
+    qf, kf, vf = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out, lse = flash_attention_train_plain(qf, kf, vf, mask, seed, rate)
+    out.backward(g)
+    return out.detach(), lse.detach(), (qf.grad, kf.grad, vf.grad)
+
+
+def hold_dropout(name, got, want) -> float:
+    """The dropout kernels' (out, lse, (dq, dk, dv)) against the reference's;
+    raises on a disagreement, returns the max abs error."""
+    (out, lse, grads), (ref_out, ref_lse, ref_grads) = got, want
+    err = compare(f"{name}: out", out, ref_out, attention=True)
+    d_lse = (lse - ref_lse).abs().max().item()
+    log(f"  {name}: lse max_abs {d_lse:.3e} (tol {LSE_TOL}) {'ok' if d_lse <= LSE_TOL else 'FAIL'}")
+    if not d_lse <= LSE_TOL:
+        raise AssertionError(f"{name}: lse disagrees with the plain version")
+    for gname, g, w in zip(("dq", "dk", "dv"), grads, ref_grads):
+        ok, msg, e = grad_agreement(g, w)
+        log(f"  {name}: {gname} {msg} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: {gname} disagrees with autograd of the plain version")
+        err = max(err, e)
+    return err
+
+
+def check_dropout_call(name, q, k, v, mask, seed, rate, g) -> float:
+    """Both dropout flash kernels against the plain version at one shape; max abs error."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.kernels.flash_dropout import (
+        flash_attention_train_plain,
+        flash_dropout_bwd,
+        flash_dropout_fwd,
+    )
+
+    out, lse = flash_dropout_fwd(q, k, v, mask, seed, rate)
+    grads = flash_dropout_bwd(q, k, v, mask, seed, rate, out, lse, g)
+    torch.cuda.synchronize()
+    ref = plain_with_grads(q, k, v, mask, seed, rate, g)
+    err = hold_dropout(f"{name} rate {rate}", (out, lse, grads), ref)
+    if rate > 0:
+        # the check must reject a kernel that draws another dropout pattern
+        other = flash_attention_train_plain(q, k, v, mask, seed + 1, rate)[0]
+        ok, msg, _ = agreement(other, ref[0], attention=True)
+        log(f"  self-test, plain version with seed + 1: {msg} {'passed (FAIL)' if ok else 'rejected'}")
+        if ok:
+            raise AssertionError("the dropout check does not see another keep mask")
+    return err
+
+
+def train_key_mask(dev):
+    """The memory cross-attention key mask of the training path's last tracked
+    frame at T = TRAIN_T (frames 0..T-2 in the bank, frame 0 conditioning), as
+    ``select_memories`` / ``gather_memories`` give it: [O, Lk] bool."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.core.config import resolve_config
+    from us_video_medsam2_tpu_torch.models.memory_bank import init_memory_bank, select_memories
+
+    c = resolve_config("sam2.1_hiera_t512")
+    bank = init_memory_bank(TRAIN_OBJECTS, TRAIN_T, 1, 1, 1, device=dev)
+    bank.valid[:, : TRAIN_T - 1] = True
+    bank.is_cond[:, 0] = True
+    sel = select_memories(bank, TRAIN_T - 1, c, TRAIN_T, is_training=True)
+    tok = c.tokens_per_obj_ptr
+    return torch.cat([sel.mem_valid.repeat_interleave(c.feat_size**2, 1),
+                      sel.ptr_valid.repeat_interleave(tok, 1)], 1)
+
+
+def check_dropout_kernels(g, rows) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from us_video_medsam2_tpu_torch.kernels.flash_dropout import (
+        flash_attention_train_plain,
+        flash_dropout_bwd,
+        flash_dropout_fwd,
+    )
+
+    dev = "cuda"
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    seed = 1234
+    mask = train_key_mask(dev)
+    lk_cross = mask.shape[1]
+    log(f"flash_dropout (D 256, rate {DROPOUT} and 0): memory attention of the training path, "
+        f"{TRAIN_OBJECTS} objects; cross-attention Lk = {lk_cross} at T = {TRAIN_T} "
+        f"({int(mask[0].sum())} valid keys on the last tracked frame)")
+    rf = rows["flash_dropout_fwd"] = Row("flash_dropout_fwd")
+    rb = rows["flash_dropout_bwd"] = Row("flash_dropout_bwd")
+    b, lq, d = TRAIN_OBJECTS, 1024, 256
+    for name, lk, m in (("self", 1024, None), ("cross", lk_cross, mask)):
+        q, k, v, go = rn(b, 1, lq, d), rn(b, 1, lk, d), rn(b, 1, lk, d), rn(b, 1, lq, d)
+        err = max(check_dropout_call(f"{name} q{lq} k{lk}", q, k, v, m, seed, rate, go)
+                  for rate in (DROPOUT, 0.0))
+        valid = lk if m is None else int(m[0].sum())
+        mb = 0 if m is None else b * lk
+        out, lse = flash_dropout_fwd(q, k, v, m, seed, DROPOUT)
+        am = None if m is None else m[:, None, None, :]
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+
+        def plain_fb():
+            flash_attention_train_plain(*leaves, m, seed, DROPOUT)[0].backward(go)
+
+        def library_fb():
+            F.scaled_dot_product_attention(*leaves, attn_mask=am, dropout_p=DROPOUT).backward(go)
+
+        with torch.no_grad():
+            plain_f = time_ms(lambda: flash_attention_train_plain(q, k, v, m, seed, DROPOUT))
+            lib_f = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, dropout_p=DROPOUT))
+        qkv_bytes = 2 * b * lq * d + 2 * 2 * b * valid * d
+        bnd, by = bound_ms(qkv_bytes + mb + 2 * b * lq * d + 4 * b * lq, 4 * b * lq * valid * d, BF16_FLOPS)
+        rf.add([b, lq, lk, d, m is not None], 4, err,
+               time_ms(lambda: flash_dropout_fwd(q, k, v, m, seed, DROPOUT)), plain_f, bnd, by, lib_f)
+        # reads q, k, v, g, out, lse and the mask; writes dq and dk, dv over all Lk keys
+        bwd_bytes = qkv_bytes + mb + 2 * 2 * b * lq * d + 4 * b * lq + 2 * b * lq * d + 2 * 2 * b * lk * d
+        bnd, by = bound_ms(bwd_bytes, 10 * b * lq * valid * d, BF16_FLOPS)
+        rb.add([b, lq, lk, d, m is not None], 4, err,
+               time_ms(lambda: flash_dropout_bwd(q, k, v, m, seed, DROPOUT, out, lse, go)),
+               time_ms(plain_fb) - plain_f, bnd, by, time_ms(library_fb) - lib_f)
+    log("  library = F.scaled_dot_product_attention(attn_mask=bool, dropout_p=0.1): another keep mask, "
+        "the same function in distribution; backward = (forward + backward) - forward")
+    log("flash_dropout edge shapes (bf16, untimed): ragged Lq/Lk, B2 H2, batch 1 all masked")
+    q, k, v, go = rn(2, 2, 1000, d), rn(2, 2, 1100, d), rn(2, 2, 1100, d), rn(2, 2, 1000, d)
+    m = torch.rand(2, 1100, generator=g, device=dev) > 0.3
+    m[1] = False
+    for rate in (DROPOUT, 0.0):
+        check_dropout_call("B2 H2 q1000 k1100", q, k, v, m, seed, rate, go)
+    check_dropout_index_wrap(rn, seed)
+
+
+def check_dropout_index_wrap(rn, seed) -> None:
+    """260 heads of q4096 k4096 (D 256, no mask, rate 0.1): the keep hash's
+    element index (bh·Lq + q)·Lk + k passes 2^31 at head 128 and 2^32 at
+    head 256, where the int32 arithmetic of the JAX hash wraps. Heads 0,
+    128, 200 and 259 are held against the plain math of that head alone,
+    its keep mask indexed as in the full call (``keep_from_index``)."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.kernels.flash_dropout import (
+        flash_dropout_bwd,
+        flash_dropout_fwd,
+        keep_from_index,
+    )
+
+    h, n, d = 260, 4096, 256
+    q, k, v, go = (rn(1, h, n, d) for _ in range(4))
+    out, lse = flash_dropout_fwd(q, k, v, None, seed, DROPOUT)
+    grads = flash_dropout_bwd(q, k, v, None, seed, DROPOUT, out, lse, go)
+    torch.cuda.synchronize()
+    pos = torch.arange(n, device=q.device)
+    for j in (0, 128, 200, 259):
+        qj, kj, vj = (x[0, j].clone().requires_grad_(True) for x in (q, k, v))
+        s = torch.matmul(qj.float(), kj.float().T) * d**-0.5
+        keep = keep_from_index((j * n + pos[:, None]) * n + pos[None, :], seed, DROPOUT)
+        p = torch.where(keep, torch.softmax(s, -1) / (1.0 - DROPOUT), 0.0)
+        ref = torch.matmul(p.to(vj.dtype).float(), vj.float()).to(qj.dtype)
+        ref.backward(go[0, j])
+        hold_dropout(f"index wrap, head {j} (index from {j * n * n})",
+                     (out[0, j], lse[0, j], [x[0, j] for x in grads]),
+                     (ref.detach(), torch.logsumexp(s, -1).detach(), (qj.grad, kj.grad, vj.grad)))
+    del q, k, v, go, out, lse, grads
+
+
 def make_video(frames: int, size: int, seed: int):
     """uint8 [T, size, size, 3]: smooth moving Gaussian blobs on a gradient,
-    and the (x, y) centre of blob 0 on frame 0."""
+    the (x, y) centre of blob 0 on frame 0, and the blobs' masks [T, 3,
+    size, size] bool (within one radius of each centre)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -309,14 +622,17 @@ def make_video(frames: int, size: int, seed: int):
     col = rng.uniform(80, 255, (n_blobs, 3))
     base = (20 + 40 * xx / size + 30 * yy / size)[..., None] * np.ones(3, np.float32)
     video = np.empty((frames, size, size, 3), np.uint8)
+    masks = np.empty((frames, n_blobs, size, size), bool)
     for t in range(frames):
         img = base.copy()
         for i in range(n_blobs):
             cx, cy = c0[i] + vel[i] * t
-            a = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * rad[i] ** 2))[..., None]
+            d2 = (xx - cx) ** 2 + (yy - cy) ** 2
+            a = np.exp(-d2 / (2 * rad[i] ** 2))[..., None]
             img = img * (1 - a) + col[i] * a
+            masks[t, i] = d2 < rad[i] ** 2
         video[t] = np.clip(img, 0, 255).astype(np.uint8)
-    return video, (float(c0[0, 0]), float(c0[0, 1]))
+    return video, (float(c0[0, 0]), float(c0[0, 1])), masks
 
 
 def run_main_path(predictor, video, click, stop_after=None):
@@ -341,10 +657,11 @@ def run_main_path(predictor, video, click, stop_after=None):
     return out, t1 - t0, time.perf_counter() - t1
 
 
-def profile_main_path(predictor, video, click, out_dir, wall_s):
-    """One main-path run under torch.profiler: device time by kernel, and a
-    Chrome trace in ``out_dir``. The idle share is taken against ``wall_s``,
-    the unprofiled run's wall time (the profiler slows the host down)."""
+def profile_run(fn, label, out_dir, wall_s):
+    """``fn()`` once under torch.profiler: device time by kernel, and a Chrome
+    trace ``{label}_trace.json`` in ``out_dir``. The idle share is taken
+    against ``wall_s``, an unprofiled run's wall time (the profiler slows the
+    host down)."""
     import os
 
     import torch
@@ -352,9 +669,9 @@ def profile_main_path(predictor, video, click, out_dir, wall_s):
 
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_main_path(predictor, video, click)
+        fn()
     wall_us = wall_s * 1e6
-    prof.export_chrome_trace(os.path.join(out_dir, "main_path_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{label}_trace.json"))
     rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -365,7 +682,7 @@ def profile_main_path(predictor, video, click, out_dir, wall_s):
         rows.append((us, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"  profile: device busy {busy / 1e3:.2f} ms over the main path, unprofiled wall "
+    log(f"  profile ({label}): device busy {busy / 1e3:.2f} ms, unprofiled wall "
         f"{wall_us / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
         f"{sum(r[1] for r in rows)} kernel launches")
     for us, count, key in rows[:25]:
@@ -378,19 +695,177 @@ def iou(a, b) -> float:
 
 
 def counters():
-    from us_video_medsam2_tpu_torch.kernels import flash_attention, layer_norm, ln_mlp_residual, window_attention
+    from us_video_medsam2_tpu_torch.kernels import (
+        flash_attention,
+        flash_dropout,
+        layer_norm,
+        ln_mlp_residual,
+        window_attention,
+    )
 
     return {
         "window_attention": window_attention.window_attention,
         "layer_norm": layer_norm.layer_norm,
         "ln_mlp_residual": ln_mlp_residual.ln_mlp_residual,
         "flash_attention": flash_attention.flash_attention,
+        "flash_dropout_fwd": flash_dropout.flash_dropout_fwd,
+        "flash_dropout_bwd": flash_dropout.flash_dropout_bwd,
     }
+
+
+def read_counts(fn):
+    """(fn(), {kernel: launches during fn}) with every count set to 0 just before."""
+    wrappers = counters()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def make_train_batch(frames: int, size: int, device):
+    """Seeded moving blobs (``make_video``) normalized as the predictor does,
+    and the masks of the first TRAIN_OBJECTS blobs: a TrainBatch of one video."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.inference.transforms import preprocess_images
+    from us_video_medsam2_tpu_torch.training.train_step import TrainBatch
+
+    video, _, masks = make_video(frames, size, SEED)
+    images = preprocess_images(torch.from_numpy(video).to(device), size)[:, None]
+    m = torch.from_numpy(masks[:, :TRAIN_OBJECTS]).to(device)[:, None]
+    return TrainBatch(images, m, torch.ones(1, TRAIN_OBJECTS, dtype=torch.bool, device=device))
+
+
+def build_train_model(state_dict=None, dropout=DROPOUT):
+    """f32 ``sam2.1_hiera_t512`` with the training config's postprocessing
+    (no binarized click memories) and memory-attention dropout ``dropout``;
+    weights from ``state_dict`` or from SEED with the object-score head's
+    output bias at +10, as in phase 4."""
+    import dataclasses
+
+    import torch
+
+    from us_video_medsam2_tpu_torch.core.build import build_sam2
+    from us_video_medsam2_tpu_torch.core.config import resolve_config
+
+    base = resolve_config("sam2.1_hiera_t512")
+    model = build_sam2(base, state_dict=state_dict, seed=SEED, binarize_mask_from_pts_for_mem_enc=False,
+                       memory_attention=dataclasses.replace(base.memory_attention, dropout=dropout))
+    if state_dict is None:
+        with torch.no_grad():
+            model.sam_mask_decoder.obj_score_head.layers_2.bias.fill_(10.0)
+    return model
+
+
+def group_norms(grads: dict) -> dict:
+    return {g: sum(float(v.float().square().sum()) for n, v in grads.items() if n.startswith(pre)) ** 0.5
+            for g, pre in PARAM_GROUPS.items()}
+
+
+def run_training(profile_dir=None) -> dict:
+    """Phase 5; returns the launches of the timed steps by kernel."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.training.losses import LossConfig
+    from us_video_medsam2_tpu_torch.training.optimizer import OptimConfig
+    from us_video_medsam2_tpu_torch.training.train_model import TrainSimConfig
+    from us_video_medsam2_tpu_torch.training.train_step import (
+        TrainConfig,
+        create_train_state,
+        make_train_step,
+    )
+
+    torch.manual_seed(SEED)  # the residual dropouts draw from torch's global generator
+    cfg = TrainConfig(sim=TrainSimConfig(),
+                      loss=LossConfig(weight_temporal=0.5, temporal_variant="consistency"),
+                      optim=OptimConfig(total_steps=1000))
+    model = build_train_model()
+    host_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    state = create_train_state(model, cfg)  # the card, bf16 compute, f32 master weights
+    size = model.cfg.image_size
+    batch = make_train_batch(TRAIN_T, size, "cuda")
+    step = make_train_step(cfg)
+    gen = torch.Generator().manual_seed(SEED)
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t0
+
+    total = {k: 0 for k in counters()}
+    walls = []
+    for i in range(TRAIN_STEPS + 1):  # step 0 is the warm-up
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        (m, wall), counts = read_counts(timed_step)
+        plan = m["plan"]
+        tracked = TRAIN_T - plan.n_init
+        expected = {k: 0 for k in counts}
+        expected.update(PER_TRAIN_STEP)
+        expected.update({k: v * tracked for k, v in PER_TRACKED_TRAIN_FRAME.items()})
+        loss, gnorm = float(m["core_loss"]), float(m["grad_norm"])
+        norms = group_norms(m["grads"])
+        log(f"  step {i}{' (warm-up)' if i == 0 else ''}: core_loss {loss:.6f}, grad_norm {gnorm:.6f}, "
+            f"{1e3 * wall:.2f} ms; plan mode {('point', 'box', 'mask')[plan.mode]}, n_init {plan.n_init}, "
+            f"tracked frames {tracked}; launches {counts}")
+        if counts != expected:
+            raise AssertionError(f"launch counts {counts} != {expected}")
+        if not (torch.isfinite(torch.tensor([loss, gnorm])).all() and gnorm > 0):
+            raise AssertionError(f"step {i}: core_loss {loss} or grad_norm {gnorm} not finite and positive")
+        bad = {g: v for g, v in norms.items() if not (v > 0 and v < float("inf"))}
+        if bad:
+            raise AssertionError(f"step {i}: zero or non-finite gradient in parameter groups {bad}")
+        if i > 0:
+            walls.append(wall)
+            total = {k: total[k] + counts[k] for k in total}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  gradient norm by parameter group (last step): { {g: round(v, 6) for g, v in norms.items()} }")
+    log(f"  {TRAIN_STEPS} steps (T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}): median "
+        f"{1e3 * statistics.median(walls):.2f} ms/step (host clock around step + synchronize; "
+        f"steps {[round(1e3 * w, 2) for w in walls]}), "
+        f"peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
+    if profile_dir:
+        def profiled():
+            p = step(state, batch, gen)["plan"]
+            log(f"  profiled step: plan mode {('point', 'box', 'mask')[p.mode]}, n_init {p.n_init}")
+
+        profile_run(profiled, "train_step", profile_dir, statistics.median(walls))
+
+    # one step with a fixed plan and no dropout, on the card and on the host CPU
+    fixed = TrainConfig(sim=TrainSimConfig(prob_to_use_pt_input=0.0, rand_init_cond_frames=False,
+                                           num_init_cond_frames=1), loss=cfg.loss, optim=cfg.optim)
+    res = {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        st = create_train_state(build_train_model(host_sd, dropout=0.0), fixed, device=dev, dtype=dtype)
+        t0 = time.perf_counter()
+        m = make_train_step(fixed)(st, make_train_batch(HOST_T, size, dev), torch.Generator().manual_seed(SEED))
+        res[dev] = (float(m["core_loss"]), {n: g.detach().float().cpu() for n, g in m["grads"].items()})
+        log(f"  fixed-plan step on {dev} ({dtype}, T {HOST_T}): core_loss {res[dev][0]:.6f}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        del st, m
+    (lc, gc), (lh, gh) = res["cuda"], res["cpu"]
+    loss_rel = abs(lc - lh) / abs(lh)
+    def rel_l2(prefix=""):
+        names = [n for n in gh if n.startswith(prefix)]
+        num = sum(float((gc[n] - gh[n]).square().sum()) for n in names)
+        return (num / max(sum(float(gh[n].square().sum()) for n in names), 1e-30)) ** 0.5
+
+    grad_rel = rel_l2()
+    by_group = {g: round(rel_l2(pre), 4) for g, pre in PARAM_GROUPS.items()}
+    ok = loss_rel <= LOSS_REL_TOL and grad_rel <= GRAD_VS_HOST_REL_L2_TOL
+    log(f"  card vs host: loss rel diff {loss_rel:.4e} (tol {LOSS_REL_TOL}), whole-gradient rel-L2 "
+        f"{grad_rel:.4e} (tol {GRAD_VS_HOST_REL_L2_TOL}); by group {by_group} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("training step: card and host disagree")
+    return total
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", metavar="DIR", help="also profile one main-path run, trace into DIR")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="also profile one main-path run and one training step, traces into DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -411,7 +886,7 @@ def main(argv=None) -> int:
     # 1. the card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/5] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[1/6] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 2. the build
     t0 = time.perf_counter()
@@ -421,34 +896,33 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     if msgs:
         (lib.parent / "nvcc.log").write_text("\n".join(msgs))
-    log(f"[2/5] build: {lib.name} in {build_s:.2f} s (set-up)")
+    log(f"[2/6] build: {lib.name} in {build_s:.2f} s (set-up)")
 
     # 3. each kernel against its plain version
-    log("[3/5] kernels vs plain versions at the main-path shapes (bf16)")
+    log("[3/6] kernels vs plain versions at the main-path shapes (bf16)")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(g)
+    check_kernel_grads(g)
+    check_dropout_kernels(g, rows)
 
     # 4. the main path
-    log("[4/5] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
+    log("[4/6] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
     model = build_sam2("sam2.1_hiera_t512", seed=SEED)
     with torch.no_grad():
         model.sam_mask_decoder.obj_score_head.layers_2.bias.fill_(10.0)
     host_sd = {k: v.clone() for k, v in model.state_dict().items()}
     model = model.to("cuda").set_compute_dtype(torch.bfloat16)
     predictor = SAM2VideoPredictor(model, fill_hole_area=8)
-    video, click = make_video(FRAMES, model.cfg.image_size, SEED)
+    video, click, _ = make_video(FRAMES, model.cfg.image_size, SEED)
 
     run_main_path(predictor, video, click)  # warm-up: lazy CUDA / library initialisation
-    wrappers = counters()
     n = FRAMES
-    expected = {k: v * n for k, v in PER_ENCODED_FRAME.items()}
+    expected = {k: 0 for k in counters()}
+    expected.update({k: v * n for k, v in PER_ENCODED_FRAME.items()})
     expected.update({k: v * (n - 1) for k, v in PER_TRACKED_FRAME.items()})
     runs = []
     for _ in range(REPEATS):
-        for w in wrappers.values():
-            w.launches = 0
-        masks, t_prompt, t_prop = run_main_path(predictor, video, click)
-        launches = {k: w.launches for k, w in wrappers.items()}
+        (masks, t_prompt, t_prop), launches = read_counts(lambda: run_main_path(predictor, video, click))
         log(f"  launches {launches}, expected {expected}")
         if launches != expected:
             raise AssertionError(f"launch counts {launches} != {expected}")
@@ -467,7 +941,7 @@ def main(argv=None) -> int:
     log(f"  init_state + prompt {1e3 * t_prompt:.2f} ms; propagation {1e3 * t_prop:.2f} ms = "
         f"{1e3 * t_prop / (n - 1):.2f} ms per tracked frame ({(n - 1) / t_prop:.2f} frames/s)")
     if args.profile:
-        profile_main_path(predictor, video, click, args.profile, wall)
+        profile_run(lambda: run_main_path(predictor, video, click), "main_path", args.profile, wall)
 
     k = CHECK_FRAMES
     log(f"  host CPU reference (plain versions, f32) on the first {k} frames")
@@ -490,18 +964,25 @@ def main(argv=None) -> int:
         if not ok:
             raise AssertionError(f"frame {f}: card and host disagree")
 
-    # 5. the kernels line, the card line, the device line
+    # 5. the training path
+    log(f"[5/6] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
+        f"T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}, seeded weights and batch")
+    train_launches = run_training(args.profile)
+    log(f"  launches over the {TRAIN_STEPS} timed steps: {train_launches}")
+
+    # 6. the kernels line (launches of the dropout kernels from the training
+    # steps, of the others from a propagation run), the card line, the device line
     kernels = []
     for kname, r in rows.items():
         kernels.append({
-            "name": kname, "route": "cuda", "source": SOURCE.format(kname),
-            "replaces": REPLACES[kname], "launches": launches[kname],
+            "name": kname, "route": "cuda", "source": SOURCES[kname], "replaces": REPLACES[kname],
+            "launches": train_launches[kname] if kname in PER_TRACKED_TRAIN_FRAME else launches[kname],
             "max_abs_err": r.max_abs, "ms": r.ms, "plain_ms": r.plain_ms,
             "bound_ms": r.bound, "bound_by": "bytes" if r.bytes_bound >= r.ops_bound else "operations",
             "library_ms": r.library_ms,
         })
     detail = {r.name: r.shapes for r in rows.values()}
-    log("[5/5] per-shape detail " + json.dumps(detail))
+    log("[6/6] per-shape detail " + json.dumps(detail))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -120,7 +120,7 @@ def test_smoke_script_main_path_on_cpu(monkeypatch):
     from us_video_medsam2_tpu_torch.core.build import build_sam2
 
     pred = SAM2VideoPredictor(build_sam2("tiny64_test", seed=0), fill_hole_area=8, device="cpu")
-    video, click = chip_smoke.make_video(5, 64, seed=0)
+    video, click, _ = chip_smoke.make_video(5, 64, seed=0)
     assert video.shape == (5, 64, 64, 3) and video.dtype == np.uint8
     masks, t_prompt, t_prop = chip_smoke.run_main_path(pred, video, click)
     assert sorted(masks) == [0, 1, 2, 3, 4] and t_prompt > 0 and t_prop > 0

@@ -27,6 +27,7 @@ class HieraConfig:
     global_att_blocks: Tuple[int, ...] = (5, 7, 9)
     window_pos_embed_bkg_spatial_size: Tuple[int, int] = (7, 7)
     mlp_ratio: float = 4.0
+    drop_path_rate: float = 0.0
     patch_kernel: int = 7
     patch_stride: int = 4
     patch_padding: int = 3
@@ -52,6 +53,7 @@ class MemoryAttentionConfig:
     num_layers: int = 4
     num_heads: int = 1
     dim_feedforward: int = 2048
+    dropout: float = 0.1
     pos_enc_at_input: bool = True
     pos_enc_at_attn: bool = False
     pos_enc_at_cross_attn_keys: bool = True

@@ -9,6 +9,8 @@ library name carries a hash of the sources and flags, so an edit rebuilds.
 Each C entry point takes device pointers and a ``cudaStream_t`` as
 ``c_void_p``, launches on that stream, allocates nothing, and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
+``with_plain_grad`` gives a forward-only kernel the gradient of its plain
+version, recomputed in the backward pass.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -122,11 +126,46 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    import torch
-
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 F = ctypes.c_float
+
+
+_TENSOR = object()  # marks the argument slots that hold saved tensors
+
+
+class _Recompute(torch.autograd.Function):
+    """Forward: the kernel. Backward: the vjp of the plain version,
+    recomputed from the saved inputs (the JAX custom_vjp's XLA recompute).
+    The backward launches no kernel."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *args):
+        ctx.plain = plain
+        ctx.slots = [_TENSOR if torch.is_tensor(a) else a for a in args]
+        ctx.save_for_backward(*[a for a in args if torch.is_tensor(a)])
+        return kernel(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[2:]
+        args, wrt = list(ctx.slots), []
+        saved = iter(ctx.saved_tensors)
+        for i, slot in enumerate(ctx.slots):
+            if slot is _TENSOR:
+                args[i] = next(saved).detach().requires_grad_(need[i])
+                if need[i]:
+                    wrt.append(args[i])
+        with torch.enable_grad():
+            out = ctx.plain(*args)
+        grads = iter(torch.autograd.grad(out, wrt, g) if wrt else ())
+        return (None, None, *[next(grads) if need[i] else None for i in range(len(args))])
+
+
+def with_plain_grad(kernel, plain, *args):
+    """``kernel(*args)`` whose gradient is that of ``plain(*args)``."""
+    return _Recompute.apply(kernel, plain, *args)

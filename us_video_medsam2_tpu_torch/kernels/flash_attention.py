@@ -41,9 +41,14 @@ def flash_attention_plain(q, k, v, key_mask=None):
 
 def flash_attention(q, k, v, key_mask=None):
     """softmax(q·kᵀ/√D, masked)·v. CPU tensors take the plain version; a CUDA
-    tensor launches the kernel (bf16, D in SUPPORTED_D) or raises."""
+    tensor launches the kernel (bf16, D in SUPPORTED_D) or raises. The
+    gradient is the plain version's, recomputed in the backward pass."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, key_mask)
+    return _lib.with_plain_grad(_kernel, flash_attention_plain, q, k, v, key_mask)
+
+
+def _kernel(q, k, v, key_mask):
     b, h, lq, d = q.shape
     lk = k.shape[2]
     for name, t, shape in (("q", q, (b, h, lq, d)), ("k", k, (b, h, lk, d)), ("v", v, (b, h, lk, d))):

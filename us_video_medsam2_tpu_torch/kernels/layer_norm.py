@@ -38,9 +38,14 @@ def layer_norm(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:
     """LayerNorm of x [..., d]. CPU tensors take the plain version; a CUDA
-    tensor launches the kernel (bf16 x, f32 weight/bias) or raises."""
+    tensor launches the kernel (bf16 x, f32 weight/bias) or raises. The
+    gradient is the plain version's, recomputed in the backward pass."""
     if x.device.type == "cpu":
         return layer_norm_plain(x, weight, bias, eps)
+    return _lib.with_plain_grad(_kernel, layer_norm_plain, x, weight, bias, eps)
+
+
+def _kernel(x, weight, bias, eps):
     d = x.shape[-1]
     if x.device.type != "cuda" or x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError(f"layer_norm kernel takes contiguous bf16 CUDA x, got {x.dtype} {x.device}")

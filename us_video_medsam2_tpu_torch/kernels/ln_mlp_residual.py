@@ -44,9 +44,15 @@ def ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6):
 
 def ln_mlp_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6):
     """x [N, D] -> x + MLP(LN(x)). CPU tensors take the plain version; a CUDA
-    tensor launches the kernel (bf16 x/w1/w2, f32 LN params and biases) or raises."""
+    tensor launches the kernel (bf16 x/w1/w2, f32 LN params and biases) or
+    raises. The gradient is the plain version's, recomputed in the backward
+    pass (cast w1/w2 at use to keep f32 master weights)."""
     if x.device.type == "cpu":
         return ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    return _lib.with_plain_grad(_kernel, ln_mlp_residual_plain, x, ln_w, ln_b, w1, b1, w2, b2, eps)
+
+
+def _kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps):
     if x.device.type != "cuda" or x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("ln_mlp_residual kernel takes contiguous bf16 CUDA x [N, D]")
     n, d = x.shape

@@ -54,9 +54,14 @@ def window_attention_plain(qkv: torch.Tensor, ws: int, nh: int, q_pool: bool) ->
 
 def window_attention(qkv: torch.Tensor, ws: int, nh: int, q_pool: bool) -> torch.Tensor:
     """[B, Hp, Wp, 3·nh·hd] -> [B, Hpo, Wpo, nh·hd]. CPU tensors take the plain
-    version; a CUDA tensor launches the kernel (bf16) or raises."""
+    version; a CUDA tensor launches the kernel (bf16) or raises. The gradient
+    is the plain version's, recomputed in the backward pass."""
     if qkv.device.type == "cpu":
         return window_attention_plain(qkv, ws, nh, q_pool)
+    return _lib.with_plain_grad(_kernel, window_attention_plain, qkv, ws, nh, q_pool)
+
+
+def _kernel(qkv, ws, nh, q_pool):
     if (qkv.device.type != "cuda" or qkv.dtype != torch.bfloat16 or not qkv.is_contiguous()
             or qkv.data_ptr() % 16):
         raise ValueError("window_attention kernel takes contiguous, 16-byte aligned bf16 CUDA qkv")

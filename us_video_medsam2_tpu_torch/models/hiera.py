@@ -4,8 +4,10 @@ Counterpart of the JAX package's ``models/hiera.py``. Per block: norm1 through
 the LayerNorm kernel, the qkv projection as one Linear over the map, windowed
 attention through the window-attention kernel (global blocks use the plain
 attention, as the JAX package does), the output projection, and the
-LN -> MLP -> residual tail through its kernel. The JAX package's 128-lane
-head-dim padding exists only for the TPU and is not carried over.
+LN -> MLP -> residual tail through its kernel (with the plain MLP and drop
+path instead when drop path is on in training, as the JAX package gates its
+kernel). The JAX package's 128-lane head-dim padding exists only for the TPU
+and is not carried over.
 """
 
 from __future__ import annotations
@@ -67,14 +69,23 @@ class MultiScaleAttention(nn.Module):
         return self.proj(out)
 
 
+def drop_path(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
+    """Per-sample stochastic depth (reference sam2_utils.py:92-107), torch's RNG."""
+    if rate == 0.0 or deterministic:
+        return x
+    keep = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class MultiScaleBlock(nn.Module):
     """Hiera block (reference hieradet.py:84-166)."""
 
-    def __init__(self, dim, dim_out, num_heads, window_size, q_stride, mlp_ratio):
+    def __init__(self, dim, dim_out, num_heads, window_size, q_stride, mlp_ratio, drop_path=0.0):
         super().__init__()
         self.dim, self.dim_out = dim, dim_out
         self.window_size = window_size
         self.q_stride = q_stride
+        self.drop_path = drop_path
         self.norm1 = LayerNorm(dim, eps=1e-6)
         if dim != dim_out:
             self.proj = Linear(dim, dim_out)
@@ -82,21 +93,21 @@ class MultiScaleBlock(nn.Module):
         self.norm2 = LayerNorm(dim_out, eps=1e-6)
         self.mlp = MLP(dim_out, int(dim_out * mlp_ratio), dim_out, 2, activation="gelu")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         shortcut = x
         x = layer_norm(x.contiguous(), self.norm1.weight, self.norm1.bias, 1e-6)
         if self.dim != self.dim_out:
             shortcut = self.proj(x)
             if self.q_stride:
                 shortcut = max_pool_2x(shortcut)
-        x = shortcut + self.attn(x, self.window_size)
+        x = shortcut + drop_path(self.attn(x, self.window_size), self.drop_path, deterministic)
+        if not (deterministic or self.drop_path == 0.0):
+            return x + drop_path(self.mlp(self.norm2(x)), self.drop_path, deterministic)
         b, h, w, c = x.shape
-        out = ln_mlp_residual(
-            x.reshape(b * h * w, c),
-            self.norm2.weight, self.norm2.bias,
-            self.mlp.layers_0.weight, self.mlp.layers_0.bias,
-            self.mlp.layers_1.weight, self.mlp.layers_1.bias,
-            1e-6,
+        l0, l1 = self.mlp.layers_0, self.mlp.layers_1
+        out = ln_mlp_residual(  # weights cast at use: f32 master weights keep their gradient
+            x.reshape(b * h * w, c), self.norm2.weight, self.norm2.bias,
+            l0.weight.to(x.dtype), l0.bias, l1.weight.to(x.dtype), l1.bias, 1e-6,
         )
         return out.reshape(b, h, w, c)
 
@@ -115,6 +126,7 @@ class Hiera(nn.Module):
         self.pos_embed_window = nn.Parameter(torch.zeros(1, win, win, cfg.embed_dim))
 
         depth = sum(cfg.stages)
+        dpr = [cfg.drop_path_rate * i / max(depth - 1, 1) for i in range(depth)]
         self.stage_ends = [sum(cfg.stages[: i + 1]) - 1 for i in range(len(cfg.stages))]
         q_pool_blocks = [e + 1 for e in self.stage_ends[:-1]][: cfg.q_pool]
         dim, num_heads, cur_stage = cfg.embed_dim, cfg.num_heads, 1
@@ -132,11 +144,11 @@ class Hiera(nn.Module):
                 cur_stage += 1
             self.add_module(f"blocks_{i}", MultiScaleBlock(
                 dim, dim_out, num_heads, window_size,
-                cfg.q_stride if i in q_pool_blocks else None, cfg.mlp_ratio,
+                cfg.q_stride if i in q_pool_blocks else None, cfg.mlp_ratio, dpr[i],
             ))
             dim = dim_out
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> list[torch.Tensor]:
         x = self.patch_embed(x)
         h, w = x.shape[1:3]
         win = self.cfg.window_spec[0]
@@ -145,7 +157,7 @@ class Hiera(nn.Module):
         x = (x + pe.to(x.dtype)).contiguous()
         outputs = []
         for i in range(self.depth):
-            x = getattr(self, f"blocks_{i}")(x)
+            x = getattr(self, f"blocks_{i}")(x, deterministic)
             if i in self.stage_ends:
                 outputs.append(x)
         return outputs

@@ -1,11 +1,11 @@
 """Shared building blocks, channels-last (NHWC) / batch-first.
 
 Counterpart of the JAX package's ``models/layers.py``. Parameters are created
-in f32; ``cast_weights`` turns the weight matrices of Linear, convolution and
-transposed-convolution modules into the compute dtype once, and every other
-parameter (biases, LayerNorm scale/bias, embeddings) stays f32 and is cast at
-use, as the JAX modules do. Numerics: exact-erf GELU, LayerNorm eps per site,
-f32 LayerNorm statistics.
+in f32 and cast to the input dtype at use, as the JAX modules do;
+``cast_weight_matrices`` turns the weight matrices of Linear, convolution and
+transposed-convolution modules into the compute dtype once for serving, and
+every other parameter (biases, LayerNorm scale/bias, embeddings) stays f32.
+Numerics: exact-erf GELU, LayerNorm eps per site, f32 LayerNorm statistics.
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ class ConvTranspose2x(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
-def cast_weights(module: nn.Module, dtype: torch.dtype) -> None:
+def cast_weight_matrices(module: nn.Module, dtype: torch.dtype) -> None:
     """Cast the weight matrices of Linear / convolution modules to ``dtype``
     in place; everything else keeps f32."""
     for m in module.modules():

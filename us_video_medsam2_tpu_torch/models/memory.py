@@ -5,7 +5,9 @@ Counterpart of the JAX package's ``models/memory.py``. Memory keys are the
 fixed-shape concatenation [spatial memory-slot tokens | object-pointer
 tokens]; invalid slots are excluded by a boolean key mask. Pointer tokens are
 not rotated by RoPE. CXBlock runs its plain composition (the JAX default; its
-TPU kernel is opt-in there and not ported yet).
+TPU kernel is opt-in there and not ported yet). With ``deterministic`` False
+(training) the layers apply attention dropout and their four residual
+dropouts (``dropout``, ``dropout1``-``dropout3``, torch's own RNG).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from us_video_medsam2_tpu_torch.core.config import MemoryAttentionConfig, MemoryEncoderConfig
 from us_video_medsam2_tpu_torch.models.layers import ACTIVATIONS, Conv2d, LayerNorm, Linear, gelu_exact
@@ -26,8 +29,9 @@ class MemoryAttentionLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
-        self.self_attn = RoPEAttention(d, cfg.num_heads)
-        self.cross_attn_image = RoPEAttention(d, cfg.num_heads, kv_in_dim=cfg.kv_in_dim)
+        self.self_attn = RoPEAttention(d, cfg.num_heads, dropout=cfg.dropout)
+        self.cross_attn_image = RoPEAttention(d, cfg.num_heads, kv_in_dim=cfg.kv_in_dim,
+                                              dropout=cfg.dropout)
         self.norm1 = LayerNorm(d, eps=1e-5)
         self.norm2 = LayerNorm(d, eps=1e-5)
         self.norm3 = LayerNorm(d, eps=1e-5)
@@ -35,19 +39,24 @@ class MemoryAttentionLayer(nn.Module):
         self.linear2 = Linear(cfg.dim_feedforward, d)
         self.act = ACTIVATIONS[cfg.activation]
 
-    def forward(self, tgt, memory, pos, query_pos, rope_q, rope_k, key_mask=None):
+    def forward(self, tgt, memory, pos, query_pos, rope_q, rope_k, key_mask=None,
+                deterministic=True, gen=None):
         cfg = self.cfg
+
+        def drop(x):  # residual dropouts, and the one inside the FFN
+            return F.dropout(x, cfg.dropout, training=not deterministic)
+
         tgt2 = self.norm1(tgt)
         q = tgt2 + query_pos if cfg.pos_enc_at_attn else tgt2
-        tgt = tgt + self.self_attn(q, q, tgt2, rope_q, rope_q)
+        tgt = tgt + drop(self.self_attn(q, q, tgt2, rope_q, rope_q, None, deterministic, gen))
         tgt2 = self.norm2(tgt)
-        tgt = tgt + self.cross_attn_image(
+        tgt = tgt + drop(self.cross_attn_image(
             tgt2 + query_pos if cfg.pos_enc_at_cross_attn_queries else tgt2,
             memory + pos if cfg.pos_enc_at_cross_attn_keys else memory,
-            memory, rope_q, rope_k, key_mask,
-        )
-        tgt2 = self.linear2(self.act(self.linear1(self.norm3(tgt))))
-        return tgt + tgt2
+            memory, rope_q, rope_k, key_mask, deterministic, gen,
+        ))
+        tgt2 = self.linear2(drop(self.act(self.linear1(self.norm3(tgt)))))
+        return tgt + drop(tgt2)
 
 
 class MemoryAttention(nn.Module):
@@ -60,7 +69,8 @@ class MemoryAttention(nn.Module):
             self.add_module(f"layers_{i}", MemoryAttentionLayer(cfg))
         self.norm = LayerNorm(cfg.d_model, eps=1e-5)
 
-    def forward(self, curr, memory, curr_pos, memory_pos, num_obj_ptr_tokens=0, key_mask=None):
+    def forward(self, curr, memory, curr_pos, memory_pos, num_obj_ptr_tokens=0, key_mask=None,
+                deterministic=True, gen=None):
         cfg = self.cfg
         cos, sin = compute_axial_rope(cfg.d_model // cfg.num_heads, cfg.rope_feat_sizes[0],
                                       cfg.rope_feat_sizes[1], cfg.rope_theta, curr.device)
@@ -69,7 +79,7 @@ class MemoryAttention(nn.Module):
         out = curr + 0.1 * curr_pos if cfg.pos_enc_at_input else curr
         for i in range(cfg.num_layers):
             out = getattr(self, f"layers_{i}")(out, memory, memory_pos, curr_pos, (cos, sin),
-                                               rope_k, key_mask)
+                                               rope_k, key_mask, deterministic, gen)
         return self.norm(out)
 
 

@@ -63,13 +63,14 @@ class MemorySelection:
 
 
 def select_memories(bank: MemoryBank, frame_idx: int, cfg: SAM2Config, num_frames: int,
-                    track_in_reverse: bool = False, max_cond_slots: int | None = None
-                    ) -> MemorySelection:
+                    track_in_reverse: bool = False, max_cond_slots: int | None = None,
+                    is_training: bool = False) -> MemorySelection:
     """The reference's memory-frame selection (sam2_base.py:1296-1422) as a
-    static gather plan, at eval: conditioning slots are the K closest valid
+    static gather plan: conditioning slots are the K closest valid
     conditioning frames (ties to the lower frame index); non-conditioning slots
-    follow the stride-r schedule; pointer slots cover the last
-    min(num_frames, max_obj_ptrs) frames. Conditioning frames that did not
+    follow the stride-r schedule (r = 1 in training); pointer slots cover the
+    last min(num_frames, max_obj_ptrs) frames (conditioning pointers only from
+    the past at eval, if so configured). Conditioning frames that did not
     make the top K stay eligible as non-conditioning memories and pointers."""
     B, S = bank.valid.shape
     dev = bank.valid.device
@@ -86,7 +87,7 @@ def select_memories(bank: MemoryBank, frame_idx: int, cfg: SAM2Config, num_frame
     selected_as_cond = torch.zeros(B, S, dtype=torch.bool, device=dev)
     selected_as_cond.scatter_(1, cond_idx, cond_valid)
 
-    r = max(1, cfg.memory_temporal_stride_for_eval)
+    r = 1 if is_training else max(1, cfg.memory_temporal_stride_for_eval)
     t_pos = torch.arange(1, cfg.num_maskmem, device=dev)
     t_rel = cfg.num_maskmem - t_pos
     if not track_in_reverse:
@@ -113,7 +114,7 @@ def select_memories(bank: MemoryBank, frame_idx: int, cfg: SAM2Config, num_frame
     max_ptrs = min(num_frames, cfg.max_obj_ptrs_in_encoder)
     t_diff_max = max(max_ptrs - 1, 1)
     cond_ptr_valid = cond_valid
-    if cfg.only_obj_ptrs_in_the_past_for_eval:
+    if not is_training and cfg.only_obj_ptrs_in_the_past_for_eval:
         in_past = (cond_idx >= frame_idx) if track_in_reverse else (cond_idx <= frame_idx)
         cond_ptr_valid = cond_ptr_valid & in_past
     if cfg.use_signed_tpos_enc_to_obj_ptrs:

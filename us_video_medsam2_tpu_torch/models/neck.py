@@ -55,8 +55,8 @@ class ImageEncoder(nn.Module):
         self.neck = neck
         self.scalp = scalp
 
-    def forward(self, sample: torch.Tensor) -> dict:
-        features, pos = self.neck(self.trunk(sample))
+    def forward(self, sample: torch.Tensor, deterministic: bool = True) -> dict:
+        features, pos = self.neck(self.trunk(sample, deterministic))
         if self.scalp > 0:
             features, pos = features[: -self.scalp], pos[: -self.scalp]
         return {"vision_features": features[-1], "vision_pos_enc": pos, "backbone_fpn": features}

@@ -2,10 +2,11 @@
 
 Counterpart of the JAX package's ``models/sam2.py`` (reference
 sam2/modeling/sam2_base.py:764-1682) for the Hiera trunk: ``forward_image``,
-``condition_on_memory``, ``sam_heads``, ``use_mask_as_output``,
-``encode_memory`` and ``track_step``. NHWC features, [B, N, C] tokens, f32
-parameters with weight matrices in the compute dtype (``set_compute_dtype``),
-NO_OBJ_SCORE = -1024 (sam2_base.py:19).
+``condition_on_memory``, ``no_mem_features``, ``sam_heads``,
+``use_mask_as_output``, ``encode_memory`` and ``track_step``, each with the
+training switches of the JAX package (``is_training``, ``deterministic``).
+NHWC features, [B, N, C] tokens, f32 parameters run in the compute dtype
+(``set_compute_dtype``), NO_OBJ_SCORE = -1024 (sam2_base.py:19).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch.nn as nn
 
 from us_video_medsam2_tpu_torch.core.config import SAM2Config
 from us_video_medsam2_tpu_torch.models.hiera import Hiera
-from us_video_medsam2_tpu_torch.models.layers import MLP, Conv2d, Linear, cast_weights
+from us_video_medsam2_tpu_torch.models.layers import MLP, Conv2d, Linear, cast_weight_matrices
 from us_video_medsam2_tpu_torch.models.mask_decoder import MaskDecoder, dynamic_multimask_via_stability
 from us_video_medsam2_tpu_torch.models.memory import MemoryAttention, MemoryEncoder
 from us_video_medsam2_tpu_torch.models.memory_bank import (
@@ -66,17 +67,20 @@ class SAM2Model(nn.Module):
         if c.no_obj_embed_spatial:
             self.no_obj_embed_spatial = nn.Parameter(torch.zeros(c.mem_dim))
 
-    def set_compute_dtype(self, dtype: torch.dtype) -> "SAM2Model":
-        """Run in ``dtype`` (bf16 on the card): weight matrices are cast once,
-        LayerNorm parameters, biases and embeddings stay f32."""
-        cast_weights(self, dtype)
+    def set_compute_dtype(self, dtype: torch.dtype, cast_weights: bool = True) -> "SAM2Model":
+        """Run in ``dtype`` (bf16 on the card). Serving casts the weight
+        matrices once (LayerNorm parameters, biases and embeddings stay f32);
+        training passes ``cast_weights=False`` and keeps every parameter in
+        f32 as the master copy, cast at use."""
+        if cast_weights:
+            cast_weight_matrices(self, dtype)
         self.dtype = dtype
         return self
 
     # ------------------------------------------------------------------ images
-    def forward_image(self, images: torch.Tensor) -> dict:
+    def forward_image(self, images: torch.Tensor, deterministic: bool = True) -> dict:
         """images [B, H, W, 3] -> feature dict (sam2_base.py:1220-1232)."""
-        out = self.image_encoder(images.to(self.dtype))
+        out = self.image_encoder(images.to(self.dtype), deterministic)
         fpn = list(out["backbone_fpn"])
         if self.cfg.use_high_res_features_in_sam:
             fpn[0] = self.conv_s0(fpn[0])
@@ -87,13 +91,17 @@ class SAM2Model(nn.Module):
     # ------------------------------------------------------- memory attention
     def condition_on_memory(self, frame_idx: int, curr_feat: torch.Tensor, bank: MemoryBank,
                             num_frames: int, track_in_reverse: bool = False,
-                            max_cond_slots: int | None = None) -> torch.Tensor:
-        """Cross-attend the current frame to the memory bank (sam2_base.py:1271-1448)."""
+                            max_cond_slots: int | None = None, is_training: bool = False,
+                            deterministic: bool = True,
+                            gen: torch.Generator | None = None) -> torch.Tensor:
+        """Cross-attend the current frame to the memory bank (sam2_base.py:1271-1448).
+        ``gen`` draws the attention-dropout seeds when ``deterministic`` is False."""
         c = self.cfg
         dt = self.dtype
         b, h, w, ch = curr_feat.shape
         dev = curr_feat.device
-        sel = select_memories(bank, frame_idx, c, num_frames, track_in_reverse, max_cond_slots)
+        sel = select_memories(bank, frame_idx, c, num_frames, track_in_reverse, max_cond_slots,
+                              is_training)
         mem, ptrs = gather_memories(bank, sel)
         B, M, HWm, md = mem.shape
         mem_tokens = mem.reshape(B, M * HWm, md).to(dt)
@@ -127,13 +135,21 @@ class SAM2Model(nn.Module):
         out = self.memory_attention(
             curr_feat.reshape(b, h * w, ch), memory, curr_pos.expand(b, -1, -1).to(dt),
             memory_pos, num_obj_ptr_tokens=num_ptr_tokens, key_mask=key_mask,
+            deterministic=deterministic, gen=gen,
         )
         return out.reshape(b, h, w, ch)
 
+    def no_mem_features(self, curr_feat: torch.Tensor) -> torch.Tensor:
+        """Initial conditioning frames skip memory attention (sam2_base.py:1423-1429)."""
+        return curr_feat + self.no_mem_embed.to(curr_feat.dtype)
+
     # -------------------------------------------------------------- SAM heads
     def sam_heads(self, backbone_features, point_coords=None, point_labels=None,
-                  mask_inputs=None, high_res_features=None, multimask_output=False) -> dict:
-        """Prompt encoder + mask decoder (sam2_base.py:1010-1166), eval mode."""
+                  mask_inputs=None, high_res_features=None, multimask_output=False,
+                  is_training: bool = False) -> dict:
+        """Prompt encoder + mask decoder (sam2_base.py:1010-1166). In training
+        the single-mask output skips the stability fallback, and a multimask
+        output keeps every channel at image resolution for the loss."""
         c = self.cfg
         dt = self.dtype
         b = backbone_features.shape[0]
@@ -152,7 +168,7 @@ class SAM2Model(nn.Module):
             backbone_features, self.sam_prompt_encoder.dense_pe(dt), sparse, dense,
             multimask_output=multimask_output, high_res_features=high_res_features,
         )
-        if not multimask_output and c.dynamic_multimask_via_stability:
+        if not multimask_output and not is_training and c.dynamic_multimask_via_stability:
             out_masks, out_ious = dynamic_multimask_via_stability(
                 all_masks, all_ious, c.dynamic_multimask_stability_delta,
                 c.dynamic_multimask_stability_thresh,
@@ -173,8 +189,12 @@ class SAM2Model(nn.Module):
             low_res_masks = low_res_multimasks[rows, best][:, None]
             if sam_tokens.shape[1] > 1:
                 sam_output_token = sam_tokens[rows, best]
-            high_res_masks = upsample(low_res_masks)
-            high_res_multimasks = high_res_masks
+            if is_training:
+                high_res_multimasks = upsample(low_res_multimasks)
+                high_res_masks = high_res_multimasks[rows, best][:, None]
+            else:  # the selection commutes with upsampling: upsample the chosen mask only
+                high_res_masks = upsample(low_res_masks)
+                high_res_multimasks = high_res_masks
         else:
             high_res_multimasks = upsample(low_res_multimasks)
             low_res_masks, high_res_masks = low_res_multimasks, high_res_multimasks
@@ -228,13 +248,13 @@ class SAM2Model(nn.Module):
 
     # ---------------------------------------------------------- memory encode
     def encode_memory(self, curr_feat, high_res_masks, object_score_logits,
-                      is_mask_from_pts: bool = False) -> torch.Tensor:
+                      is_mask_from_pts: bool = False, is_training: bool = False) -> torch.Tensor:
         """Predicted mask + pixels -> memory feature [B, Hm, Wm, mem_dim] (sam2_base.py:1450-1498)."""
         c = self.cfg
         masks = high_res_masks.permute(0, 2, 3, 1)
-        if c.non_overlap_masks_for_mem_enc:
+        if c.non_overlap_masks_for_mem_enc and not is_training:
             masks = apply_non_overlapping_constraints(high_res_masks).permute(0, 2, 3, 1)
-        if c.binarize_mask_from_pts_for_mem_enc and is_mask_from_pts:
+        if c.binarize_mask_from_pts_for_mem_enc and is_mask_from_pts and not is_training:
             mask_for_mem = (masks > 0).float()
         else:
             mask_for_mem = torch.sigmoid(masks.float())
@@ -264,7 +284,7 @@ class SAM2Model(nn.Module):
             out = self.use_mask_as_output(feats["top"], hr, mask_inputs)
         else:
             if is_init_cond_frame and c.directly_add_no_mem_embed:
-                pix_feat = feats["top"] + self.no_mem_embed.to(feats["top"].dtype)
+                pix_feat = self.no_mem_features(feats["top"])
             else:
                 pix_feat = self.condition_on_memory(frame_idx, feats["top"], bank, num_frames,
                                                     track_in_reverse, max_cond_slots)

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``models/transformer.py``, batch-first
 [B, N, C]. ``Attention`` (mask decoder) uses the plain attention, as the JAX
 package does at these token counts; ``RoPEAttention`` (memory attention)
-goes through ``ops.attention.sdpa``, the flash kernel on the card. Landmark
-pooling and attention dropout are not ported.
+goes through ``ops.attention.sdpa``, the flash kernel on the card, and in
+training with attention dropout through ``kernels.flash_dropout``. Landmark
+pooling is not ported.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from us_video_medsam2_tpu_torch.kernels.flash_dropout import flash_attention_train
 from us_video_medsam2_tpu_torch.models.layers import MLP, LayerNorm, Linear
 from us_video_medsam2_tpu_torch.ops.attention import attention_plain, sdpa
 from us_video_medsam2_tpu_torch.ops.posenc import apply_rope_halfsplit
@@ -50,13 +52,26 @@ class Attention(nn.Module):
 class RoPEAttention(Attention):
     """Attention with axial RoPE on q and k (transformer.py:289-360). The key
     tables arrive already extended over repeated memory slots and over the
-    unrotated object-pointer keys (``ops.posenc.rope_key_tables``)."""
+    unrotated object-pointer keys (``ops.posenc.rope_key_tables``). With
+    ``dropout`` > 0 and ``deterministic`` False (training), the attention
+    weights are dropped after the softmax with a keep mask made from an int32
+    seed drawn from ``gen`` (transformer.py:340-344)."""
 
-    def forward(self, q, k, v, rope_q, rope_k, key_mask=None):
+    def __init__(self, embedding_dim, num_heads, downsample_rate=1, kv_in_dim=None, dropout=0.0):
+        super().__init__(embedding_dim, num_heads, downsample_rate, kv_in_dim)
+        self.dropout = dropout
+
+    def forward(self, q, k, v, rope_q, rope_k, key_mask=None, deterministic=True,
+                gen: torch.Generator | None = None):
         nh = self.num_heads
         q = apply_rope_halfsplit(_heads(self.q_proj(q), nh), *rope_q)
         k = apply_rope_halfsplit(_heads(self.k_proj(k), nh), *rope_k)
-        out = sdpa(q, k, _heads(self.v_proj(v), nh), key_mask)
+        v = _heads(self.v_proj(v), nh)
+        if self.dropout > 0.0 and not deterministic:
+            seed = int(torch.randint(-(2**31), 2**31, (), generator=gen))
+            out = flash_attention_train(q, k, v, key_mask, seed, self.dropout)
+        else:
+            out = sdpa(q, k, v, key_mask)
         return self.out_proj(_merge(out))
 
 

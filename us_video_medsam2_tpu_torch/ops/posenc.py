@@ -26,7 +26,10 @@ def _on_device(key, make, device):
     k = (key, str(dev))
     t = _device_tables.get(k)
     if t is None:
-        t = _device_tables[k] = make(dev)
+        # a normal tensor even when first asked for under torch.inference_mode()
+        # (the predictor): autograd may save it later, in a training step
+        with torch.inference_mode(False):
+            t = _device_tables[k] = make(dev)
     return t
 
 
