@@ -27,7 +27,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    it (out, lse, dq, dk, dv) at the training path's memory self- and
    cross-attention shapes, at rates 0.1 and 0, with a check that must reject
    the plain version run with seed + 1, at edge shapes, and where the keep
-   hash's element index passes 2^31 and 2^32;
+   hash's element index passes 2^31 and 2^32. The two kernels of the fused
+   configuration are held at every shape the main path gives them (CXBlock
+   at [1, 32, 32, 256] with layer scale 1 +- 0.1, on out and on out - x;
+   the qkv window attention at the nine windowed blocks' geometries), again
+   untimed at the training shapes and at B 2 edge shapes, with a check that
+   must reject the plain CXBlock without its pwconv1 bias and one that must
+   reject pad tokens whose q, k, v are 0 instead of the bias; their
+   gradients as those of the four kernels above;
 4. the main path: ``sam2.1_hiera_t512`` at full width in bf16 on the card with
    weights from a seeded generator (the object-score head's output bias is
    set to +10 so the object is present on every frame and the masks are not
@@ -38,7 +45,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches per encoded frame and 8 flash launches per tracked frame. The
    first frames are run again on the host CPU (plain versions, f32) with the
    same weights and compared per frame;
-5. the training path: the ``sam2.1_hiera_t512`` training step at full width
+5. the fused configuration: phase 4 again with the JAX package's two opt-in
+   switches set (``US_MEDSAM2_ENABLE_FUSED_CXBLOCK``,
+   ``US_MEDSAM2_FUSE_QKV_WINDOW_ATTN``): 9 qkv-window-attention and no
+   window-attention launches per encoded frame, 2 CXBlock launches per
+   memory encoding, the same LayerNorm, MLP and flash counts, the frames
+   held against phase 4's host reference, and ms per tracked frame with the
+   switches off and on printed side by side;
+6. the training path: the ``sam2.1_hiera_t512`` training step at full width
    (T = 4 frames, B = 1 video, O = 3 objects, ``TrainSimConfig()``, temporal
    consistency loss 0.5, AdamW with layer decay) in bf16 with f32 master
    weights on a seeded batch of moving blobs and their masks: one warm-up
@@ -46,9 +60,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    norm, a non-zero gradient in every parameter group, and exact launch
    counts (9 window-attention, 12 LayerNorm and 12 MLP per step, 8 dropout
    flash forward and 8 backward per tracked frame). Then one step with a
-   fixed plan and memory-attention dropout off on the card and on the host
-   CPU (plain versions, f32): loss and whole-gradient agreement;
-6. the kernels line, the card line, and the device line last.
+   fixed plan and memory-attention dropout off on the card, once more on the
+   card with both switches set (exact qkv-window-attention and CXBlock
+   counts), and on the host CPU (plain versions, f32): loss and
+   whole-gradient agreement of each card step with the host's;
+7. the kernels line, the card line, and the device line last.
 
 Exits non-zero without a result when no CUDA device is present or when the
 port's package is not beside this script.
@@ -57,7 +73,9 @@ port's package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -106,6 +124,8 @@ REPLACES = {
     "flash_attention": "us_video_medsam2_tpu/kernels/flash_attention.py:113",
     "flash_dropout_fwd": "us_video_medsam2_tpu/kernels/flash_dropout.py:276",
     "flash_dropout_bwd": "us_video_medsam2_tpu/kernels/flash_dropout.py:337",
+    "cxblock": "us_video_medsam2_tpu/kernels/fused_cxblock.py:147",
+    "qkv_window_attention": "us_video_medsam2_tpu/kernels/fused_window_attention.py:254",
 }
 SOURCES = {k: f"us_video_medsam2_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES["flash_dropout_fwd"] = SOURCES["flash_dropout_bwd"] = (
@@ -119,12 +139,23 @@ WIN_SHAPES = [((128, 8, 1, False), 1), ((128, 8, 2, True), 1), ((64, 4, 2, False
               ((64, 4, 4, True), 1), ((42, 14, 4, False), 3), ((42, 14, 8, True), 1),
               ((21, 7, 8, False), 1)]
 HD = 96
+# the fused configuration: (Hp, ws, nh, q_pool, Cin, real map side) of each
+# windowed block's in-kernel qkv projection (32 -> 42 and 16 -> 21 are the
+# zero-padded maps of stages 3 and 4), and the memory encoder's CXBlock map
+QKV_SHAPES = [((128, 8, 1, False, 96, 128), 1), ((128, 8, 2, True, 96, 128), 1),
+              ((64, 4, 2, False, 192, 64), 1), ((64, 4, 4, True, 192, 64), 1),
+              ((42, 14, 4, False, 384, 32), 3), ((42, 14, 8, True, 384, 32), 1),
+              ((21, 7, 8, False, 768, 16), 1)]
+CX_SIDE, CX_C = 32, 256
+FUSED_SWITCHES = ("US_MEDSAM2_ENABLE_FUSED_CXBLOCK", "US_MEDSAM2_FUSE_QKV_WINDOW_ATTN")
 FRAMES = 16  # video length of the main path
 CHECK_FRAMES = 4  # frames run again on the host CPU
 REPEATS = 3  # timed main-path runs, median kept
 SEED = 0
 PER_ENCODED_FRAME = {"window_attention": 9, "layer_norm": 12, "ln_mlp_residual": 12}
 PER_TRACKED_FRAME = {"flash_attention": 8}
+PER_ENCODED_FRAME_FUSED = {"qkv_window_attention": 9, "layer_norm": 12, "ln_mlp_residual": 12}
+PER_MEMORY_ENCODING = {"cxblock": 2}  # fuser_layers CXBlocks
 # the training path
 TRAIN_T = 4
 TRAIN_OBJECTS = 3
@@ -357,6 +388,120 @@ def check_kernels(g) -> dict:
     return rows
 
 
+def cxblock_args(rn, b, h, w=None, c=CX_C):
+    """Seeded CXBlock inputs in the kernel's types. γ is 1 ± 0.1: at the
+    model's layer-scale init (1e-6) out equals x to bf16 and the check would
+    see nothing of the block."""
+    import torch
+
+    f32 = torch.float32
+    return (rn(b, h, w or h, c), rn(c, 1, 7, 7, scale=0.1, dtype=f32), rn(c, scale=0.1, dtype=f32),
+            1.0 + rn(c, scale=0.1, dtype=f32), rn(c, scale=0.1, dtype=f32), rn(4 * c, c, scale=c**-0.5),
+            rn(4 * c, scale=0.3, dtype=f32), rn(c, 4 * c, scale=(4 * c) ** -0.5), rn(c, scale=0.1, dtype=f32),
+            1.0 + rn(c, scale=0.1, dtype=f32))
+
+
+def qkv_args(rn, b, hp, nh, cin, real):
+    """Post-norm1 tokens zero-padded from real x real to hp x hp, the qkv weight and its f32 bias."""
+    import torch
+
+    y = torch.zeros(b, hp, hp, cin, dtype=torch.bfloat16, device="cuda")
+    y[:, :real, :real] = rn(b, real, real, cin)
+    return y, rn(3 * nh * HD, cin, scale=cin**-0.5), rn(3 * nh * HD, scale=0.5, dtype=torch.float32)
+
+
+def check_fused_kernels(g, rows) -> None:
+    """The two kernels of the fused configuration against their plain versions."""
+    import torch
+    import torch.nn.functional as F
+
+    from us_video_medsam2_tpu_torch.kernels.cxblock import cxblock, cxblock_plain
+    from us_video_medsam2_tpu_torch.kernels.qkv_window_attention import (
+        qkv_window_attention,
+        qkv_window_attention_plain,
+    )
+    from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention_plain
+
+    def rn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+    def hold_cxblock(name, args) -> float:
+        """out and out − x against the plain version; max abs error."""
+        got, want = cxblock(*args), cxblock_plain(*args)
+        x = args[0].float()
+        return max(compare(f"{name} out", got, want),
+                   compare(f"{name} out - x", got.float() - x, want.float() - x))
+
+    r = rows["cxblock"] = Row("cxblock")
+    log("cxblock (depthwise 7x7 f32 taps, fast-variance LN eps 1e-6, exact GELU, gamma 1 +- 0.1)")
+    r.check(hold_cxblock(f"B{TRAIN_OBJECTS} {CX_SIDE}^2 training", cxblock_args(rn, TRAIN_OBJECTS, CX_SIDE)))
+    args = cxblock_args(rn, 1, CX_SIDE)
+    err = hold_cxblock(f"{CX_SIDE}^2", args)
+    # the check must reject a kernel that drops the pwconv1 bias
+    want = cxblock_plain(*args)
+    no_b1 = cxblock_plain(*args[:6], torch.zeros_like(args[6]), *args[7:])
+    ok, msg, _ = agreement(no_b1.float() - args[0].float(), want.float() - args[0].float(), attention=False)
+    log(f"  self-test, plain version without b1: out - x {msg} {'passed (FAIL)' if ok else 'rejected'}")
+    if ok:
+        raise AssertionError("the cxblock check does not see a dropped b1")
+    hw, c, f = CX_SIDE * CX_SIDE, CX_C, 4 * CX_C
+    nbytes = 2 * 2 * hw * c + 2 * 2 * c * f + 4 * (49 * c + 6 * c + f)
+    # products on the bf16 tensor cores, the depthwise taps as f32 FMAs
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, (4 * hw * c * f / BF16_FLOPS + 2 * hw * c * 49 / F32_FLOPS) * 1e3
+    bnd, by = (tb, "bytes") if tb >= tf else (tf, "operations")
+    r.add([1, CX_SIDE, CX_SIDE, c], PER_MEMORY_ENCODING["cxblock"], err, time_ms(lambda: cxblock(*args)),
+          time_ms(lambda: cxblock_plain(*args)), bnd, by)
+    log(f"  {(CX_SIDE // 8) ** 2} blocks of 8x8 tokens at B 1 on "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs; each block reads W1 and W2 "
+        f"({2 * 2 * c * f / 1e6:.2f} MB) from L2")
+    log("  library: none (no one PyTorch call runs the depthwise conv, LN, both pointwise products, "
+        "GELU, layer scale and residual)")
+
+    r = rows["qkv_window_attention"] = Row("qkv_window_attention")
+    log(f"qkv_window_attention (in-kernel projection, f32 bias; hd {HD}, f32 scores, bf16 P)")
+    for (hp, ws, nh, pool, cin, real), cnt in QKV_SHAPES:
+        geo = f"{hp}^2 ws{ws} nh{nh} pool={pool} Cin{cin}"
+        a = qkv_args(rn, TRAIN_T, hp, nh, cin, real)
+        r.check(compare(f"B{TRAIN_T} {geo} training", qkv_window_attention(*a, ws, nh, pool),
+                        qkv_window_attention_plain(*a, ws, nh, pool), attention=True))
+        a = qkv_args(rn, 1, hp, nh, cin, real)
+        want = qkv_window_attention_plain(*a, ws, nh, pool)
+        err = compare(geo, qkv_window_attention(*a, ws, nh, pool), want, attention=True)
+        if (hp, ws, nh, pool) == (42, 14, 4, False):
+            # the check must reject a kernel whose pad tokens' q, k, v are 0, not the bias
+            y, w, b = a
+            qkv = F.linear(y.float(), w.float(), b).to(y.dtype)
+            qkv[:, real:] = 0
+            qkv[:, :, real:] = 0
+            ok, msg, _ = agreement(window_attention_plain(qkv, ws, nh, pool), want, attention=True)
+            log(f"  self-test, pad tokens' qkv 0: {msg} {'passed (FAIL)' if ok else 'rejected'}")
+            if ok:
+                raise AssertionError("the qkv window-attention check does not see zero pad tokens")
+        nwin = (hp // ws) ** 2
+        wso = ws // 2 if pool else ws
+        out_elems = nwin * wso * wso * nh * HD
+        # the projection of the real tokens (a zero pad token's q, k, v is the
+        # bias) and attention over every window
+        flops = 2 * real * real * cin * 3 * nh * HD + 4 * nwin * nh * (wso * wso) * (ws * ws) * HD
+        bnd, by = bound_ms(2 * a[0].numel() + 2 * a[1].numel() + 4 * a[2].numel() + 2 * out_elems, flops,
+                           BF16_FLOPS)
+        r.add([hp, hp, ws, nh, pool, cin], cnt, err, time_ms(lambda: qkv_window_attention(*a, ws, nh, pool)),
+              time_ms(lambda: qkv_window_attention_plain(*a, ws, nh, pool)), bnd, by)
+        log(f"      {nwin * nh} blocks; the window tokens are read {3 * nh} times: "
+            f"{3 * nh * 2 * a[0].numel() / 1e6:.2f} MB from L2 against the map's {2 * a[0].numel() / 1e6:.2f} MB")
+    log("  library: none (no one PyTorch call projects, gathers the windows, pools q and attends)")
+
+    log("fused kernels at edge shapes (bf16, untimed)")
+    hold_cxblock("cxblock B2 16^2", cxblock_args(rn, 2, 16))
+    hold_cxblock("cxblock 12x20 (ragged 8x8 tiles)", cxblock_args(rn, 1, 12, 20))
+    for (bsz, hp, wp), ws, nh, pool, cin in (((2, 28, 42), 14, 2, True, 192), ((2, 14, 21), 7, 3, False, 96)):
+        y, w, b = qkv_args(rn, bsz, max(hp, wp), nh, cin, max(hp, wp))
+        y = y[:, :hp, :wp].contiguous()
+        compare(f"qkv_window_attention B{bsz} {hp}x{wp} ws{ws} nh{nh} pool={pool} Cin{cin}",
+                qkv_window_attention(y, w, b, ws, nh, pool), qkv_window_attention_plain(y, w, b, ws, nh, pool),
+                attention=True)
+
+
 def grad_agreement(got, want) -> tuple[bool, str, float]:
     """(within tolerance, message, max abs error) of a gradient against its reference."""
     import torch
@@ -402,16 +547,22 @@ def hold_grad(name, wrapper, plain, args, wrt, g) -> None:
 
 def check_kernel_grads(g) -> None:
     """The wrapper gradient of each forward-only kernel (LayerNorm, MLP,
-    window and flash attention) at one training-path shape (T·B =
-    TRAIN_T frames through the trunk; the memory cross-attention of the
-    fixed-plan step, which runs without dropout), every differentiable
-    argument as in training (f32 LN parameters and biases, bf16 weight
+    window and flash attention, CXBlock, qkv window attention) at one
+    training-path shape (T·B = TRAIN_T frames through the trunk; the memory
+    cross-attention of the fixed-plan step, which runs without dropout; the
+    memory encoder over TRAIN_OBJECTS objects), every differentiable argument
+    as in training (f32 LN parameters, taps and biases, bf16 weight
     matrices)."""
     import torch
 
+    from us_video_medsam2_tpu_torch.kernels.cxblock import cxblock, cxblock_plain
     from us_video_medsam2_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from us_video_medsam2_tpu_torch.kernels.layer_norm import layer_norm, layer_norm_plain
     from us_video_medsam2_tpu_torch.kernels.ln_mlp_residual import ln_mlp_residual, ln_mlp_residual_plain
+    from us_video_medsam2_tpu_torch.kernels.qkv_window_attention import (
+        qkv_window_attention,
+        qkv_window_attention_plain,
+    )
     from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
 
     dev, bf, f32 = "cuda", torch.bfloat16, torch.float32
@@ -436,6 +587,12 @@ def check_kernel_grads(g) -> None:
     b, lk = mask.shape
     hold_grad(f"flash_attention q1024 k{lk} masked", flash_attention, flash_attention_plain,
               (rn(b, 1, 1024, 256), rn(b, 1, lk, 256), rn(b, 1, lk, 256), mask), (0, 1, 2), g)
+    hold_grad(f"cxblock B{TRAIN_OBJECTS} {CX_SIDE}^2", cxblock, cxblock_plain,
+              (*cxblock_args(rn, TRAIN_OBJECTS, CX_SIDE), 1e-6), tuple(range(10)), g)
+    for hp, ws, nh, pool, cin, real in ((42, 14, 4, False, 384, 32), (42, 14, 8, True, 384, 32)):
+        hold_grad(f"qkv_window_attention B{TRAIN_T} {hp}^2 ws{ws} nh{nh} pool={pool}", qkv_window_attention,
+                  qkv_window_attention_plain, (*qkv_args(rn, TRAIN_T, hp, nh, cin, real), ws, nh, pool),
+                  (0, 1, 2), g)
 
 
 def plain_with_grads(q, k, v, mask, seed, rate, g):
@@ -696,10 +853,12 @@ def iou(a, b) -> float:
 
 def counters():
     from us_video_medsam2_tpu_torch.kernels import (
+        cxblock,
         flash_attention,
         flash_dropout,
         layer_norm,
         ln_mlp_residual,
+        qkv_window_attention,
         window_attention,
     )
 
@@ -710,6 +869,8 @@ def counters():
         "flash_attention": flash_attention.flash_attention,
         "flash_dropout_fwd": flash_dropout.flash_dropout_fwd,
         "flash_dropout_bwd": flash_dropout.flash_dropout_bwd,
+        "cxblock": cxblock.cxblock,
+        "qkv_window_attention": qkv_window_attention.qkv_window_attention,
     }
 
 
@@ -836,36 +997,105 @@ def run_training(profile_dir=None) -> dict:
     # one step with a fixed plan and no dropout, on the card and on the host CPU
     fixed = TrainConfig(sim=TrainSimConfig(prob_to_use_pt_input=0.0, rand_init_cond_frames=False,
                                            num_init_cond_frames=1), loss=cfg.loss, optim=cfg.optim)
+    # (the card once more with both fused kernels switched on: the same function)
     res = {}
-    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
-        st = create_train_state(build_train_model(host_sd, dropout=0.0), fixed, device=dev, dtype=dtype)
-        t0 = time.perf_counter()
-        m = make_train_step(fixed)(st, make_train_batch(HOST_T, size, dev), torch.Generator().manual_seed(SEED))
-        res[dev] = (float(m["core_loss"]), {n: g.detach().float().cpu() for n, g in m["grads"].items()})
-        log(f"  fixed-plan step on {dev} ({dtype}, T {HOST_T}): core_loss {res[dev][0]:.6f}, "
+    for label, dev, dtype in (("card", "cuda", torch.bfloat16), ("card, fused", "cuda", torch.bfloat16),
+                              ("host", "cpu", torch.float32)):
+        with fused_switches(label == "card, fused"):
+            st = create_train_state(build_train_model(host_sd, dropout=0.0), fixed, device=dev, dtype=dtype)
+            t0 = time.perf_counter()
+            m, counts = read_counts(lambda: make_train_step(fixed)(
+                st, make_train_batch(HOST_T, size, dev), torch.Generator().manual_seed(SEED)))
+        res[label] = (float(m["core_loss"]), {n: g.detach().float().cpu() for n, g in m["grads"].items()})
+        log(f"  fixed-plan step, {label} ({dtype}, T {HOST_T}): core_loss {res[label][0]:.6f}, "
             f"{time.perf_counter() - t0:.1f} s")
+        if label == "card, fused":
+            # one batched encoder call; every frame's memory encoded once
+            want = {"qkv_window_attention": 9, "window_attention": 0, "cxblock": 2 * HOST_T}
+            got = {k: counts[k] for k in want}
+            log(f"  fused step launches {got}, expected {want}")
+            if got != want:
+                raise AssertionError(f"fused training step: launch counts {got} != {want}")
         del st, m
-    (lc, gc), (lh, gh) = res["cuda"], res["cpu"]
-    loss_rel = abs(lc - lh) / abs(lh)
-    def rel_l2(prefix=""):
-        names = [n for n in gh if n.startswith(prefix)]
-        num = sum(float((gc[n] - gh[n]).square().sum()) for n in names)
-        return (num / max(sum(float(gh[n].square().sum()) for n in names), 1e-30)) ** 0.5
+    lh, gh = res["host"]
+    for label in ("card", "card, fused"):
+        lc, gc = res[label]
+        loss_rel = abs(lc - lh) / abs(lh)
 
-    grad_rel = rel_l2()
-    by_group = {g: round(rel_l2(pre), 4) for g, pre in PARAM_GROUPS.items()}
-    ok = loss_rel <= LOSS_REL_TOL and grad_rel <= GRAD_VS_HOST_REL_L2_TOL
-    log(f"  card vs host: loss rel diff {loss_rel:.4e} (tol {LOSS_REL_TOL}), whole-gradient rel-L2 "
-        f"{grad_rel:.4e} (tol {GRAD_VS_HOST_REL_L2_TOL}); by group {by_group} {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("training step: card and host disagree")
+        def rel_l2(prefix=""):
+            names = [n for n in gh if n.startswith(prefix)]
+            num = sum(float((gc[n] - gh[n]).square().sum()) for n in names)
+            return (num / max(sum(float(gh[n].square().sum()) for n in names), 1e-30)) ** 0.5
+
+        grad_rel = rel_l2()
+        by_group = {g: round(rel_l2(pre), 4) for g, pre in PARAM_GROUPS.items()}
+        ok = loss_rel <= LOSS_REL_TOL and grad_rel <= GRAD_VS_HOST_REL_L2_TOL
+        log(f"  {label} vs host: loss rel diff {loss_rel:.4e} (tol {LOSS_REL_TOL}), whole-gradient rel-L2 "
+            f"{grad_rel:.4e} (tol {GRAD_VS_HOST_REL_L2_TOL}); by group {by_group} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"training step: {label} and host disagree")
     return total
+
+
+@contextlib.contextmanager
+def fused_switches(on: bool = True):
+    """Both of the JAX package's opt-in kernel switches set inside the block
+    when ``on``; unset again after it."""
+    if on:
+        os.environ.update({k: "1" for k in FUSED_SWITCHES})
+    try:
+        yield
+    finally:
+        for k in FUSED_SWITCHES:
+            os.environ.pop(k, None)
+
+
+def timed_runs(predictor, video, click, expected):
+    """Warm-up, then REPEATS main-path runs with exact launch counts; the
+    median run's (masks, wall, init_state + prompt s, propagation s)."""
+    import torch
+
+    run_main_path(predictor, video, click)  # warm-up: lazy CUDA / library initialisation
+    runs = []
+    for _ in range(REPEATS):
+        (masks, t_prompt, t_prop), launches = read_counts(lambda: run_main_path(predictor, video, click))
+        log(f"  launches {launches}, expected {expected}")
+        if launches != expected:
+            raise AssertionError(f"launch counts {launches} != {expected}")
+        runs.append((t_prompt + t_prop, t_prompt, t_prop))
+    wall, t_prompt, t_prop = sorted(runs)[len(runs) // 2]
+    log(f"  walls of the {len(runs)} runs (s): {[round(r[0], 4) for r in runs]}; median below")
+    n = video.shape[0]
+    if sorted(masks) != list(range(n)):
+        raise AssertionError(f"frames yielded {sorted(masks)}")
+    for f, m in masks.items():
+        if m.shape != (1, video.shape[1], video.shape[2]) or not torch.isfinite(torch.from_numpy(m)).all():
+            raise AssertionError(f"frame {f}: mask logits shape {m.shape} or non-finite values")
+    return masks, wall, t_prompt, t_prop
+
+
+def hold_against_host(masks, ref) -> None:
+    """Each host-checked frame: logit rel-L2 and mask IoU outside the bf16 sign band."""
+    for f in sorted(ref):
+        a, b = masks[f].astype("float64"), ref[f].astype("float64")
+        rel = float(((a - b) ** 2).sum() ** 0.5 / max(((b ** 2).sum()) ** 0.5, 1e-12))
+        clear = abs(b) > SIGN_BAND * float((b ** 2).mean()) ** 0.5
+        iou_all = iou(a > 0, b > 0)
+        iou_clear = iou((a > 0) & clear, (b > 0) & clear)
+        ok = rel <= LOGIT_REL_L2_TOL and iou_clear >= MASK_IOU_TOL
+        log(f"  frame {f}: logit rel-L2 {rel:.4e} (tol {LOGIT_REL_L2_TOL}), mask IoU {iou_clear:.5f} "
+            f"on the {float(clear.mean()):.4f} of pixels with |logit| > {SIGN_BAND} rms "
+            f"(tol {MASK_IOU_TOL}); IoU over all pixels {iou_all:.5f}, foreground "
+            f"{float((b > 0).mean()):.4f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"frame {f}: card and host disagree")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one main-path run and one training step, traces into DIR")
+                    help="also profile a main-path run with the switches off and one with them on, "
+                         "and one training step; Chrome traces into DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -882,11 +1112,14 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    were_set = [k for k in FUSED_SWITCHES if os.environ.pop(k, None) is not None]
+    if were_set:
+        log(f"chip_smoke: {were_set} unset for the default phases; phase 5 sets them itself")
 
     # 1. the card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/6] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[1/7] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 2. the build
     t0 = time.perf_counter()
@@ -896,17 +1129,18 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     if msgs:
         (lib.parent / "nvcc.log").write_text("\n".join(msgs))
-    log(f"[2/6] build: {lib.name} in {build_s:.2f} s (set-up)")
+    log(f"[2/7] build: {lib.name} in {build_s:.2f} s (set-up)")
 
     # 3. each kernel against its plain version
-    log("[3/6] kernels vs plain versions at the main-path shapes (bf16)")
+    log("[3/7] kernels vs plain versions at the main-path shapes (bf16)")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(g)
     check_kernel_grads(g)
     check_dropout_kernels(g, rows)
+    check_fused_kernels(g, rows)
 
     # 4. the main path
-    log("[4/6] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
+    log("[4/7] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
     model = build_sam2("sam2.1_hiera_t512", seed=SEED)
     with torch.no_grad():
         model.sam_mask_decoder.obj_score_head.layers_2.bias.fill_(10.0)
@@ -915,25 +1149,12 @@ def main(argv=None) -> int:
     predictor = SAM2VideoPredictor(model, fill_hole_area=8)
     video, click, _ = make_video(FRAMES, model.cfg.image_size, SEED)
 
-    run_main_path(predictor, video, click)  # warm-up: lazy CUDA / library initialisation
     n = FRAMES
     expected = {k: 0 for k in counters()}
     expected.update({k: v * n for k, v in PER_ENCODED_FRAME.items()})
     expected.update({k: v * (n - 1) for k, v in PER_TRACKED_FRAME.items()})
-    runs = []
-    for _ in range(REPEATS):
-        (masks, t_prompt, t_prop), launches = read_counts(lambda: run_main_path(predictor, video, click))
-        log(f"  launches {launches}, expected {expected}")
-        if launches != expected:
-            raise AssertionError(f"launch counts {launches} != {expected}")
-        runs.append((t_prompt + t_prop, t_prompt, t_prop))
-    wall, t_prompt, t_prop = sorted(runs)[len(runs) // 2]
-    log(f"  walls of the {len(runs)} runs (s): {[round(r[0], 4) for r in runs]}; median below")
-    if sorted(masks) != list(range(n)):
-        raise AssertionError(f"frames yielded {sorted(masks)}")
-    for f, m in masks.items():
-        if m.shape != (1, video.shape[1], video.shape[2]) or not torch.isfinite(torch.from_numpy(m)).all():
-            raise AssertionError(f"frame {f}: mask logits shape {m.shape} or non-finite values")
+    masks, wall, t_prompt, t_prop = timed_runs(predictor, video, click, expected)
+    launches = expected
     fg = [float((masks[f] > 0).mean()) for f in range(n)]
     log(f"  foreground fraction per frame: {[round(x, 4) for x in fg]}")
     log(f"  {n} frames in {wall:.3f} s: {n / wall:.2f} frames/s, {1e3 * wall / n:.2f} ms/frame "
@@ -950,28 +1171,39 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ref, _, _ = run_main_path(cpu_pred, video, click, stop_after=k)
     log(f"  host run {time.perf_counter() - t0:.1f} s")
-    for f in sorted(ref):
-        a, b = masks[f].astype("float64"), ref[f].astype("float64")
-        rel = float(((a - b) ** 2).sum() ** 0.5 / max(((b ** 2).sum()) ** 0.5, 1e-12))
-        clear = abs(b) > SIGN_BAND * float((b ** 2).mean()) ** 0.5
-        iou_all = iou(a > 0, b > 0)
-        iou_clear = iou((a > 0) & clear, (b > 0) & clear)
-        ok = rel <= LOGIT_REL_L2_TOL and iou_clear >= MASK_IOU_TOL
-        log(f"  frame {f}: logit rel-L2 {rel:.4e} (tol {LOGIT_REL_L2_TOL}), mask IoU {iou_clear:.5f} "
-            f"on the {float(clear.mean()):.4f} of pixels with |logit| > {SIGN_BAND} rms "
-            f"(tol {MASK_IOU_TOL}); IoU over all pixels {iou_all:.5f}, foreground "
-            f"{float((b > 0).mean()):.4f} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"frame {f}: card and host disagree")
+    hold_against_host(masks, ref)
 
-    # 5. the training path
-    log(f"[5/6] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
+    # 5. the fused configuration: the same model, weights and video with both
+    # opt-in kernels switched on. Memory encodings per run: the prompted frame
+    # once in propagate_in_video_preflight, then every tracked frame in
+    # track_step (models/sam2.py:293-296), each through encode_memory's
+    # memory_encoder call (models/sam2.py:262) and its 2 CXBlocks.
+    log("[5/7] fused configuration: " + " and ".join(f"{k}=1" for k in FUSED_SWITCHES))
+    n_mem = 1 + (n - 1)
+    fused_expected = {k: 0 for k in counters()}
+    fused_expected.update({k: v * n for k, v in PER_ENCODED_FRAME_FUSED.items()})
+    fused_expected.update({k: v * (n - 1) for k, v in PER_TRACKED_FRAME.items()})
+    fused_expected.update({k: v * n_mem for k, v in PER_MEMORY_ENCODING.items()})
+    log(f"  {n} encoded frames, {n - 1} tracked, {n_mem} memory encodings per run")
+    with fused_switches():
+        fmasks, fwall, f_prompt, f_prop = timed_runs(predictor, video, click, fused_expected)
+        if args.profile:
+            profile_run(lambda: run_main_path(predictor, video, click), "main_path_fused", args.profile, fwall)
+    hold_against_host(fmasks, ref)
+    log(f"  ms per tracked frame (host clock, median of {REPEATS}; for information): switches off "
+        f"{1e3 * t_prop / (n - 1):.2f}, on {1e3 * f_prop / (n - 1):.2f}; init_state + prompt off "
+        f"{1e3 * t_prompt:.2f}, on {1e3 * f_prompt:.2f}; on {card}")
+    launches = {**launches, **{k: fused_expected[k] for k in ("cxblock", "qkv_window_attention")}}
+
+    # 6. the training path
+    log(f"[6/7] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
         f"T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}, seeded weights and batch")
     train_launches = run_training(args.profile)
     log(f"  launches over the {TRAIN_STEPS} timed steps: {train_launches}")
 
-    # 6. the kernels line (launches of the dropout kernels from the training
-    # steps, of the others from a propagation run), the card line, the device line
+    # 7. the kernels line (launches of the dropout kernels from the training
+    # steps, of cxblock and qkv_window_attention from a fused propagation run,
+    # of the others from a default propagation run), the card line, the device line
     kernels = []
     for kname, r in rows.items():
         kernels.append({
@@ -982,7 +1214,7 @@ def main(argv=None) -> int:
             "library_ms": r.library_ms,
         })
     detail = {r.name: r.shapes for r in rows.values()}
-    log("[6/6] per-shape detail " + json.dumps(detail))
+    log("[7/7] per-shape detail " + json.dumps(detail))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -82,6 +82,10 @@ def test_predictor_matches_jax_predictor(fx):
     """Same weights, same 4-frame video, a mask prompt and a click on frame 0
     for two objects, hole filling on. The video resolution equals the low-res
     mask size, so the yielded logits are the low-res logits themselves."""
+    predictor_matches_jax_predictor(fx)
+
+
+def predictor_matches_jax_predictor(fx):
     images = nchw_to_nhwc(fx["images"])[:4]
     low = 4 * MINI.feat_size
     params, _ = mini_weights()

@@ -77,6 +77,10 @@ def _port_model(cfg, params) -> SAM2Model:
 
 @pytest.mark.parametrize("setting", list(SETTINGS))
 def test_train_step_loss_and_every_gradient_match_jax(setting):
+    train_step_matches_jax(setting)
+
+
+def train_step_matches_jax(setting):
     is_training, sim_kw = SETTINGS[setting]
     cfg, jmodel, params = _jax_setup()
     images, masks = _video()

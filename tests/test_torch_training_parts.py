@@ -37,9 +37,11 @@ from us_video_medsam2_tpu.training import optimizer as jopt
 from us_video_medsam2_tpu.training import prompt_sampling as jps
 from us_video_medsam2_tpu_torch.core.weights import from_jax_params
 from us_video_medsam2_tpu_torch.kernels import _lib
+from us_video_medsam2_tpu_torch.kernels.cxblock import cxblock_plain
 from us_video_medsam2_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from us_video_medsam2_tpu_torch.kernels.layer_norm import layer_norm, layer_norm_plain
 from us_video_medsam2_tpu_torch.kernels.ln_mlp_residual import ln_mlp_residual, ln_mlp_residual_plain
+from us_video_medsam2_tpu_torch.kernels.qkv_window_attention import qkv_window_attention_plain
 from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
 from us_video_medsam2_tpu_torch.training import losses as tl
 from us_video_medsam2_tpu_torch.training import prompt_sampling as tps
@@ -322,6 +324,11 @@ def _with_plain_grad_cases():
     win = (a(2, 8, 8, 3 * 2 * 96), 4, 2, True)
     qkv = (a(2, 1, 16, 256), a(2, 1, 24, 256), a(2, 1, 24, 256))
     mask = torch.from_numpy(rng.random((2, 24)) > 0.3)
+    c = 32
+    cx = (a(2, 8, 8, c), a(c, 1, 7, 7, scale=0.1), a(c, scale=0.1), a(c, scale=0.1, offset=1), a(c, scale=0.1),
+          a(4 * c, c, scale=c**-0.5), a(4 * c, scale=0.3), a(c, 4 * c, scale=(4 * c) ** -0.5), a(c, scale=0.1),
+          a(c, scale=0.1, offset=1), 1e-6)
+    qwin = (a(2, 8, 8, 48), a(3 * 2 * 96, 48, scale=48**-0.5), a(3 * 2 * 96, scale=0.5), 4, 2, True)
     return [
         ("layer_norm", layer_norm_plain, ln, (0, 1, 2)),
         ("layer_norm, weight only", layer_norm_plain, ln, (1,)),
@@ -331,10 +338,14 @@ def _with_plain_grad_cases():
         ("window_attention, no pooling", window_attention_plain, (win[0], 4, 2, False), (0,)),
         ("flash_attention, key mask", flash_attention_plain, (*qkv, mask), (0, 1, 2)),
         ("flash_attention, no mask, k and v", flash_attention_plain, (*qkv, None), (1, 2)),
+        ("cxblock", cxblock_plain, cx, tuple(range(10))),
+        ("cxblock, pointwise weights and gamma", cxblock_plain, cx, (5, 7, 9)),
+        ("qkv_window_attention", qkv_window_attention_plain, qwin, (0, 1, 2)),
+        ("qkv_window_attention, weight only, no pooling", qkv_window_attention_plain, (*qwin[:5], False), (1,)),
     ]
 
 
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", range(12))
 def test_with_plain_grad_equals_plain_autograd(case):
     name, plain, args, wrt = _with_plain_grad_cases()[case]
 

@@ -6,18 +6,25 @@ attention through the window-attention kernel (global blocks use the plain
 attention, as the JAX package does), the output projection, and the
 LN -> MLP -> residual tail through its kernel (with the plain MLP and drop
 path instead when drop path is on in training, as the JAX package gates its
-kernel). The JAX package's 128-lane head-dim padding exists only for the TPU
-and is not carried over.
+kernel). With ``US_MEDSAM2_FUSE_QKV_WINDOW_ATTN`` set (``core/switches.py``),
+a windowed block runs its qkv projection inside the window-attention kernel
+(``kernels/qkv_window_attention.py``) on the zero-padded norm1 map, as the JAX
+package opts in to its fused kernel; global blocks are unchanged. The JAX
+package's 128-lane head-dim padding exists only for the TPU and is not
+carried over.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from us_video_medsam2_tpu_torch.core.config import HieraConfig
+from us_video_medsam2_tpu_torch.core.switches import fused_qkv_window_attention_enabled
 from us_video_medsam2_tpu_torch.kernels.layer_norm import layer_norm
 from us_video_medsam2_tpu_torch.kernels.ln_mlp_residual import ln_mlp_residual
+from us_video_medsam2_tpu_torch.kernels.qkv_window_attention import qkv_window_attention
 from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention
 from us_video_medsam2_tpu_torch.models.layers import MLP, LayerNorm, Linear, NHWCConv
 from us_video_medsam2_tpu_torch.ops.attention import attention_plain
@@ -43,6 +50,16 @@ class MultiScaleAttention(nn.Module):
         b, h, w, _ = x.shape
         nh = self.num_heads
         hd = self.dim_out // nh
+        ws = window_size
+        pad_h, pad_w = ((ws - h % ws) % ws, (ws - w % ws) % ws) if ws else (0, 0)
+        ho, wo = (h // 2, w // 2) if self.q_pool else (h, w)
+        if ws and fused_qkv_window_attention_enabled():
+            # the projection runs in the kernel on the zero-padded map, so pad
+            # tokens carry exactly the bias, as in the reference
+            y = F.pad(x, (0, 0, 0, pad_w, 0, pad_h)) if pad_h or pad_w else x
+            o = qkv_window_attention(y.contiguous(), self.qkv.weight.to(x.dtype), self.qkv.bias.float(),
+                                     ws, nh, self.q_pool)
+            return self.proj(o[:, :ho, :wo])
         qkv = self.qkv(x)
         if window_size == 0:
             qkv = qkv.reshape(b, h * w, 3, nh, hd)
@@ -55,8 +72,6 @@ class MultiScaleAttention(nn.Module):
             o = attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
             out = o.transpose(1, 2).reshape(b, h, w, nh * hd)
         else:
-            ws = window_size
-            pad_h, pad_w = (ws - h % ws) % ws, (ws - w % ws) % ws
             if pad_h or pad_w:
                 # the reference zero-pads the tokens before the projection, so
                 # pad tokens carry the projection bias; they are attended
@@ -64,7 +79,6 @@ class MultiScaleAttention(nn.Module):
                 full[:, :h, :w] = qkv
                 qkv = full
             o = window_attention(qkv.contiguous(), ws, nh, self.q_pool)
-            ho, wo = (h // 2, w // 2) if self.q_pool else (h, w)
             out = o[:, :ho, :wo]
         return self.proj(out)
 

@@ -4,8 +4,10 @@ memory_encoder.py:17-181), batch-first, NHWC.
 Counterpart of the JAX package's ``models/memory.py``. Memory keys are the
 fixed-shape concatenation [spatial memory-slot tokens | object-pointer
 tokens]; invalid slots are excluded by a boolean key mask. Pointer tokens are
-not rotated by RoPE. CXBlock runs its plain composition (the JAX default; its
-TPU kernel is opt-in there and not ported yet). With ``deterministic`` False
+not rotated by RoPE. CXBlock runs its plain composition (the JAX default), or
+the whole-block kernel (``kernels/cxblock.py``) when
+``US_MEDSAM2_ENABLE_FUSED_CXBLOCK`` is set, as the JAX package opts in to its
+TPU kernel (``core/switches.py``). With ``deterministic`` False
 (training) the layers apply attention dropout and their four residual
 dropouts (``dropout``, ``dropout1``-``dropout3``, torch's own RNG).
 """
@@ -19,6 +21,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from us_video_medsam2_tpu_torch.core.config import MemoryAttentionConfig, MemoryEncoderConfig
+from us_video_medsam2_tpu_torch.core.switches import fused_cxblock_enabled
+from us_video_medsam2_tpu_torch.kernels.cxblock import cxblock
 from us_video_medsam2_tpu_torch.models.layers import ACTIVATIONS, Conv2d, LayerNorm, Linear, gelu_exact
 from us_video_medsam2_tpu_torch.models.transformer import RoPEAttention
 from us_video_medsam2_tpu_torch.ops.posenc import compute_axial_rope, rope_key_tables, sine_pos_embed_2d
@@ -118,6 +122,13 @@ class CXBlock(nn.Module):
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init))
 
     def forward(self, x):
+        if fused_cxblock_enabled() and self.dwconv.conv.padding == self.dwconv.conv.weight.shape[-1] // 2:
+            dw, p1, p2 = self.dwconv.conv, self.pwconv1, self.pwconv2
+            return cxblock(  # weights cast at use: f32 master weights keep their gradient
+                x.contiguous(), dw.weight.float(), dw.bias.float(), self.norm.weight, self.norm.bias,
+                p1.weight.to(x.dtype), p1.bias.float(), p2.weight.to(x.dtype), p2.bias.float(),
+                self.gamma.float(), self.norm.eps,
+            )
         y = self.pwconv2(gelu_exact(self.pwconv1(self.norm(self.dwconv(x)))))
         return x + self.gamma.to(x.dtype) * y
 
