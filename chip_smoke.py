@@ -34,7 +34,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    untimed at the training shapes and at B 2 edge shapes, with a check that
    must reject the plain CXBlock without its pwconv1 bias and one that must
    reject pad tokens whose q, k, v are 0 instead of the bias; their
-   gradients as those of the four kernels above;
+   gradients as those of the four kernels above. The flash kernel splits the
+   keys across blocks (``flash_splits``): it is held again, untimed, where
+   the last split is ragged, where a split holds only keys past Lk, where a
+   split holds only masked keys (beside a batch with none valid) and where
+   B·H fills the card with one split, and the check must reject the plain
+   split model combined without the exp(m_i - m) weights. The unwired
+   ``window_attention_v1`` (LN, per-head qkv, window attention and the
+   output projection in one call) is held at the seven windowed t512
+   geometries (timed, ln_inside as the block would take it, and untimed
+   with the other value) and at the six geometries of the JAX package's v1
+   test at B 2 with both ln_inside values, with a check that must reject
+   the plain version whose pad tokens' LN output is 0 instead of beta, and
+   its gradient as those above;
 4. the main path: ``sam2.1_hiera_t512`` at full width in bf16 on the card with
    weights from a seeded generator (the object-score head's output bias is
    set to +10 so the object is present on every frame and the masks are not
@@ -126,6 +138,7 @@ REPLACES = {
     "flash_dropout_bwd": "us_video_medsam2_tpu/kernels/flash_dropout.py:337",
     "cxblock": "us_video_medsam2_tpu/kernels/fused_cxblock.py:147",
     "qkv_window_attention": "us_video_medsam2_tpu/kernels/fused_window_attention.py:254",
+    "window_attention_v1": "us_video_medsam2_tpu/kernels/rejected/window_attention_v1.py:165",
 }
 SOURCES = {k: f"us_video_medsam2_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES["flash_dropout_fwd"] = SOURCES["flash_dropout_bwd"] = (
@@ -147,6 +160,16 @@ QKV_SHAPES = [((128, 8, 1, False, 96, 128), 1), ((128, 8, 2, True, 96, 128), 1),
               ((42, 14, 4, False, 384, 32), 3), ((42, 14, 8, True, 384, 32), 1),
               ((21, 7, 8, False, 768, 16), 1)]
 CX_SIDE, CX_C = 32, 256
+# window_attention_v1 (unwired): (Hp, C, nh, Co, ws, q_pool, real map side) of
+# the nine windowed t512 blocks at B 1 (ln_inside = not q_pool: a q-pool
+# block's norm1 output also feeds its shortcut projection), and the
+# geometries (Hp = Wp, C, nh, Co, ws, q_pool) of the JAX package's v1 test
+V1_SHAPES = [((128, 96, 1, 96, 8, False, 128), 1), ((128, 96, 2, 192, 8, True, 128), 1),
+             ((64, 192, 2, 192, 4, False, 64), 1), ((64, 192, 4, 384, 4, True, 64), 1),
+             ((42, 384, 4, 384, 14, False, 32), 3), ((42, 384, 8, 768, 14, True, 32), 1),
+             ((21, 768, 8, 768, 7, False, 16), 1)]
+V1_JAX_CASES = [(32, 96, 1, 96, 8, False), (32, 96, 2, 192, 8, True), (16, 192, 2, 192, 4, False),
+                (42, 384, 4, 384, 14, False), (16, 384, 4, 384, 16, False), (14, 384, 8, 768, 14, True)]
 FUSED_SWITCHES = ("US_MEDSAM2_ENABLE_FUSED_CXBLOCK", "US_MEDSAM2_FUSE_QKV_WINDOW_ATTN")
 FRAMES = 16  # video length of the main path
 CHECK_FRAMES = 4  # frames run again on the host CPU
@@ -275,7 +298,12 @@ def check_kernels(g) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from us_video_medsam2_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from us_video_medsam2_tpu_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        flash_attention_split_partials,
+        flash_splits,
+    )
     from us_video_medsam2_tpu_torch.kernels.layer_norm import layer_norm, layer_norm_plain
     from us_video_medsam2_tpu_torch.kernels.ln_mlp_residual import ln_mlp_residual, ln_mlp_residual_plain
     from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
@@ -357,6 +385,15 @@ def check_kernels(g) -> dict:
             log(f"  self-test, pointer keys dropped: {msg} {'passed (FAIL)' if ok else 'rejected'}")
             if ok:
                 raise AssertionError("the flash check does not see 24 dropped keys")
+            # and a combine of the key splits that drops the exp(m_i - m) weights
+            splits = flash_splits(1, lq, lk)
+            o_i, _, l_i = flash_attention_split_partials(q, k, v, m, splits)
+            unweighted = (o_i.sum(0) / l_i.sum(0).clamp_min(1e-30)[..., None]).to(q.dtype)
+            ok, msg, _ = agreement(unweighted, want, attention=True)
+            log(f"  self-test, {splits} splits combined without the exp(m_i - m) weights: {msg} "
+                f"{'passed (FAIL)' if ok else 'rejected'}")
+            if ok:
+                raise AssertionError("the flash check does not see an unweighted combine")
         valid = lk if m is None else int(m.sum().item())
         nbytes = 2 * 2 * lq * 256 + 2 * 2 * valid * 256 + (0 if m is None else lk)
         bnd, by = bound_ms(nbytes, 4 * lq * valid * 256, BF16_FLOPS)
@@ -385,7 +422,50 @@ def check_kernels(g) -> dict:
     mask[1] = False
     compare("flash_attention B2 H2 q1000 k1100, batch 1 all masked", flash_attention(q, k, v, mask),
             flash_attention_plain(q, k, v, mask), attention=True)
+    check_flash_splits(rn, g)
     return rows
+
+
+def check_flash_splits(rn, g) -> None:
+    """The flash kernel where its split of the keys across blocks has edges:
+    a ragged last split, splits holding only keys past Lk, a split holding
+    only masked keys beside a batch with no valid key, and one split."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        flash_splits,
+        split_ranges,
+    )
+
+    log("flash_attention split geometry (bf16, untimed)")
+    for name, (b, h, lq, lk), masked in (("last split ragged", (1, 1, 1024, 1000), True),
+                                         ("splits holding only keys past Lk", (1, 1, 1024, 576), False),
+                                         ("a split of masked keys only, batch 1 all masked", (2, 1, 1024, 1024), True),
+                                         ("one split", (2, 4, 1024, 1100), True)):
+        splits = flash_splits(b * h, lq, lk)
+        ranges = split_ranges(lk, splits)
+        sizes = [hi - lo for lo, hi in ranges]
+        mask = None
+        if masked:
+            mask = torch.rand(b, lk, generator=g, device="cuda") > 0.3
+        if name == "last split ragged":
+            ok = splits > 1 and 0 < sizes[-1] < sizes[0]
+        elif name == "splits holding only keys past Lk":
+            ok = splits > 1 and sizes[-1] == 0
+        elif name.startswith("a split of masked keys only"):
+            lo, hi = ranges[1]
+            mask[0, lo:hi] = False
+            mask[1] = False
+            ok = splits > 2 and hi > lo and bool(mask[0].any())
+        else:
+            ok = splits == 1
+        if not ok:
+            raise AssertionError(f"flash split case '{name}': geometry gives {splits} splits {ranges}")
+        q, k, v = rn(b, h, lq, 256), rn(b, h, lk, 256), rn(b, h, lk, 256)
+        compare(f"flash_attention B{b} H{h} q{lq} k{lk}, {splits} splits {sizes}: {name}",
+                flash_attention(q, k, v, mask), flash_attention_plain(q, k, v, mask), attention=True)
 
 
 def cxblock_args(rn, b, h, w=None, c=CX_C):
@@ -502,6 +582,80 @@ def check_fused_kernels(g, rows) -> None:
                 attention=True)
 
 
+def v1_args(rn, b, hp, c, nh, co, real):
+    """window_attention_v1's inputs: tokens zero-padded from real x real to
+    hp x hp (LN then makes a pad token beta), LN parameters (gamma 1 +- 0.1,
+    beta of scale 0.1), per-head weights in x's dtype and f32 biases."""
+    import torch
+
+    f32 = torch.float32
+    x = torch.zeros(b, hp, hp, c, dtype=torch.bfloat16, device="cuda")
+    x[:, :real, :real] = rn(b, real, real, c)
+    return (x, 1.0 + rn(c, scale=0.1, dtype=f32), rn(c, scale=0.1, dtype=f32),
+            *(rn(nh, c, HD, scale=c**-0.5) for _ in range(3)),
+            *(rn(nh, HD, scale=0.1, dtype=f32) for _ in range(3)),
+            rn(nh, HD, co, scale=HD**-0.5), rn(co, scale=0.1, dtype=f32))
+
+
+def check_window_attention_v1(g, rows) -> None:
+    """The unwired window_attention_v1 against its plain version."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.kernels.rejected.window_attention_v1 import (
+        _ln,
+        window_attention_v1,
+        window_attention_v1_plain,
+    )
+
+    def rn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+    eps = 1e-6
+    r = rows["window_attention_v1"] = Row("window_attention_v1")
+    log(f"window_attention_v1 (unwired; LN eps {eps}, per-head qkv, hd {HD}, f32 scores, P normalised then "
+        "rounded, out-projection summed over heads in f32)")
+    for (hp, c, nh, co, ws, pool, real), cnt in V1_SHAPES:
+        ln = not pool
+        geo = f"{hp}^2 (from {real}^2) C{c} nh{nh} Co{co} ws{ws} pool={pool}"
+        a = v1_args(rn, 1, hp, c, nh, co, real)
+        r.check(compare(f"{geo} ln_inside={not ln}", window_attention_v1(*a, ws, pool, not ln, eps),
+                        window_attention_v1_plain(*a, ws, pool, not ln, eps), attention=True))
+        want = window_attention_v1_plain(*a, ws, pool, ln, eps)
+        err = compare(f"{geo} ln_inside={ln}", window_attention_v1(*a, ws, pool, ln, eps), want, attention=True)
+        if (hp, ws, nh, pool) == (42, 14, 4, False):
+            # the check must reject a kernel that leaves the pad tokens' LN output at 0, not beta
+            y = _ln(a[0], a[1], a[2], eps)
+            y[:, real:] = 0
+            y[:, :, real:] = 0
+            ok, msg, _ = agreement(window_attention_v1_plain(y, *a[1:], ws, pool, False, eps), want, attention=True)
+            log(f"  self-test, pad tokens' LN output 0: {msg} {'passed (FAIL)' if ok else 'rejected'}")
+            if ok:
+                raise AssertionError("the window_attention_v1 check does not see pad tokens left at 0")
+        nwin = (hp // ws) ** 2
+        wso = ws // 2 if pool else ws
+        rows_out = nwin * wso * wso
+        # projections of every token with LN (a pad token is beta), of the real
+        # tokens without (a zero token's q, k, v is the bias); attention over
+        # every window; the output projection
+        tokens = hp * hp if ln else real * real
+        flops = (2 * tokens * c * 3 * nh * HD + 4 * nwin * nh * (wso * wso) * (ws * ws) * HD
+                 + 2 * rows_out * nh * HD * co)
+        nbytes = (2 * a[0].numel() + 2 * (3 * nh * c * HD + nh * HD * co) + 4 * (2 * c + 3 * nh * HD + co)
+                  + 2 * rows_out * co)
+        bnd, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        r.add([hp, hp, c, nh, co, ws, pool, ln], cnt, err, time_ms(lambda: window_attention_v1(*a, ws, pool, ln, eps)),
+              time_ms(lambda: window_attention_v1_plain(*a, ws, pool, ln, eps)), bnd, by)
+    log("  library: none (no one PyTorch call runs LN, the per-head qkv projection, the window gather, "
+        "the q pool, the attention and the output projection)")
+    log("  the JAX package's v1 test geometries at B 2 (untimed)")
+    for hp, c, nh, co, ws, pool in V1_JAX_CASES:
+        a = v1_args(rn, 2, hp, c, nh, co, hp)
+        for ln in (True, False):
+            r.check(compare(f"B2 {hp}^2 C{c} nh{nh} Co{co} ws{ws} pool={pool} ln_inside={ln}",
+                            window_attention_v1(*a, ws, pool, ln, eps),
+                            window_attention_v1_plain(*a, ws, pool, ln, eps), attention=True))
+
+
 def grad_agreement(got, want) -> tuple[bool, str, float]:
     """(within tolerance, message, max abs error) of a gradient against its reference."""
     import torch
@@ -547,7 +701,8 @@ def hold_grad(name, wrapper, plain, args, wrt, g) -> None:
 
 def check_kernel_grads(g) -> None:
     """The wrapper gradient of each forward-only kernel (LayerNorm, MLP,
-    window and flash attention, CXBlock, qkv window attention) at one
+    window and flash attention, CXBlock, qkv window attention, and the
+    unwired window_attention_v1 at B 1) at one
     training-path shape (T·B = TRAIN_T frames through the trunk; the memory
     cross-attention of the fixed-plan step, which runs without dropout; the
     memory encoder over TRAIN_OBJECTS objects), every differentiable argument
@@ -562,6 +717,10 @@ def check_kernel_grads(g) -> None:
     from us_video_medsam2_tpu_torch.kernels.qkv_window_attention import (
         qkv_window_attention,
         qkv_window_attention_plain,
+    )
+    from us_video_medsam2_tpu_torch.kernels.rejected.window_attention_v1 import (
+        window_attention_v1,
+        window_attention_v1_plain,
     )
     from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
 
@@ -593,6 +752,13 @@ def check_kernel_grads(g) -> None:
         hold_grad(f"qkv_window_attention B{TRAIN_T} {hp}^2 ws{ws} nh{nh} pool={pool}", qkv_window_attention,
                   qkv_window_attention_plain, (*qkv_args(rn, TRAIN_T, hp, nh, cin, real), ws, nh, pool),
                   (0, 1, 2), g)
+    # window_attention_v1 (unwired): x and every parameter; without ln_inside
+    # gamma and beta have no gradient
+    for (hp, c, nh, co, ws, pool, real), _ in (V1_SHAPES[4], V1_SHAPES[5]):
+        hold_grad(f"window_attention_v1 {hp}^2 C{c} nh{nh} Co{co} ws{ws} pool={pool} ln_inside={not pool}",
+                  window_attention_v1, window_attention_v1_plain,
+                  (*v1_args(rn, 1, hp, c, nh, co, real), ws, pool, not pool, 1e-6),
+                  tuple(i for i in range(11) if not (pool and i in (1, 2))), g)
 
 
 def plain_with_grads(q, k, v, mask, seed, rate, g):
@@ -861,6 +1027,7 @@ def counters():
         qkv_window_attention,
         window_attention,
     )
+    from us_video_medsam2_tpu_torch.kernels.rejected import window_attention_v1
 
     return {
         "window_attention": window_attention.window_attention,
@@ -871,6 +1038,7 @@ def counters():
         "flash_dropout_bwd": flash_dropout.flash_dropout_bwd,
         "cxblock": cxblock.cxblock,
         "qkv_window_attention": qkv_window_attention.qkv_window_attention,
+        "window_attention_v1": window_attention_v1.window_attention_v1,
     }
 
 
@@ -1138,6 +1306,7 @@ def main(argv=None) -> int:
     check_kernel_grads(g)
     check_dropout_kernels(g, rows)
     check_fused_kernels(g, rows)
+    check_window_attention_v1(g, rows)
 
     # 4. the main path
     log("[4/7] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
@@ -1203,7 +1372,8 @@ def main(argv=None) -> int:
 
     # 7. the kernels line (launches of the dropout kernels from the training
     # steps, of cxblock and qkv_window_attention from a fused propagation run,
-    # of the others from a default propagation run), the card line, the device line
+    # of the others from a default propagation run, where the unwired
+    # window_attention_v1 launches none), the card line, the device line
     kernels = []
     for kname, r in rows.items():
         kernels.append({

@@ -16,7 +16,12 @@ from tests.torch_port_helpers import n, t
 from us_video_medsam2_tpu.kernels import fused_ln, fused_mlp
 from us_video_medsam2_tpu.kernels import fused_window_attention as jwin
 from us_video_medsam2_tpu.ops.attention import sdpa as jax_sdpa
-from us_video_medsam2_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from us_video_medsam2_tpu_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+    flash_attention_split_plain,
+    split_ranges,
+)
 from us_video_medsam2_tpu_torch.kernels.layer_norm import layer_norm, layer_norm_plain
 from us_video_medsam2_tpu_torch.kernels.ln_mlp_residual import ln_mlp_residual, ln_mlp_residual_plain
 from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
@@ -170,6 +175,45 @@ def test_flash_plain_matches_pallas_interpret():
         want = jfa.flash_attention_masked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                           jnp.asarray(mask), block_q=128, block_k=128)
     _close(flash_attention_plain(t(q), t(k), t(v), t(mask)), want, "f32")
+
+
+# (name, splits): the plain model of the kernel's split over keys and its
+# combine, at Lk 384 in 64-key tiles (no key padding on the JAX side, so an
+# all-masked batch averages the same 384 keys in both)
+SPLIT_CASES = [
+    ("splits 1", 1),
+    ("splits 3", 3),
+    ("splits 8", 8),  # 6 tiles: splits 6 and 7 hold no key
+    ("a split of keys past Lk only", 4),
+    ("a split of masked keys only", 3),
+    ("an all-masked batch", 3),
+]
+
+
+@pytest.mark.parametrize("name,splits", SPLIT_CASES)
+def test_flash_split_plain_matches_plain_and_pallas_interpret(name, splits):
+    from jax.experimental.pallas import tpu as pltpu
+
+    from us_video_medsam2_tpu.kernels import flash_attention as jfa
+
+    lq, lk = 128, 384
+    q, k, v, mask = _attn_inputs(2, lq, lk, 128, seed=9)
+    mask[:, :] = np.random.default_rng(10).random((2, lk)) > 0.3
+    ranges = split_ranges(lk, splits)
+    if name == "a split of keys past Lk only":
+        assert ranges[-1][0] == ranges[-1][1] == lk
+    if name == "a split of masked keys only":
+        lo, hi = ranges[1]
+        mask[0, lo:hi] = False
+        assert mask[0].any() and not mask[0, lo:hi].any()
+    if name == "an all-masked batch":
+        mask[1] = False
+    got = flash_attention_split_plain(t(q), t(k), t(v), t(mask), splits)
+    _close(got, flash_attention_plain(t(q), t(k), t(v), t(mask)), "f32")
+    with pltpu.force_tpu_interpret_mode():
+        want = jfa.flash_attention_masked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          jnp.asarray(mask), block_q=128, block_k=128)
+    _close(got, want, "f32")
 
 
 # ------------------------------------------------------------------- wrappers

@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Propagation time per tracked frame of several checkouts of the PyTorch port, in turns (one GPU).
+
+    python3 tools/torch_propagation_ab.py TREE [TREE ...] [--repeats 5]
+
+Each TREE is the root of a checkout (for an A/B in turns: the parent, the
+change, the change, the parent). For each, in the order given, a fresh
+process whose imports come from that tree builds its kernels and runs that
+tree's chip_smoke.py main path (``sam2.1_hiera_t512``, bf16, seeded weights
+and video, ``init_state`` -> ``add_new_points_or_box`` ->
+``propagate_in_video`` over 16 frames): one warm-up run, ``--repeats``
+timed runs (host clock around propagation ending in ``synchronize``), then
+one run under torch.profiler. Prints one JSON line per tree (ms per tracked
+frame of each run and their median, device busy time of the profiled run,
+and the device time of the kernels whose name holds "flash") and the card's
+name and power limit. Needs a CUDA device; about 40 s a tree.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+CHILD = r"""
+import json, statistics, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as c
+from us_video_medsam2_tpu_torch.core.build import build_sam2
+from us_video_medsam2_tpu_torch.inference.video_predictor import SAM2VideoPredictor
+from us_video_medsam2_tpu_torch.kernels import _lib
+
+repeats = int(sys.argv[1])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+_lib.build()
+_lib.load()
+model = build_sam2("sam2.1_hiera_t512", seed=c.SEED)
+with torch.no_grad():
+    model.sam_mask_decoder.obj_score_head.layers_2.bias.fill_(10.0)
+model = model.to("cuda").set_compute_dtype(torch.bfloat16)
+predictor = SAM2VideoPredictor(model, fill_hole_area=8)
+video, click, _ = c.make_video(c.FRAMES, model.cfg.image_size, c.SEED)
+c.run_main_path(predictor, video, click)  # warm-up
+per_frame = []
+for _ in range(repeats):
+    _, _, t_prop = c.run_main_path(predictor, video, click)
+    per_frame.append(1e3 * t_prop / (c.FRAMES - 1))
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    c.run_main_path(predictor, video, click)
+busy = flash = 0.0
+for e in prof.key_averages():
+    if e.device_type != torch.autograd.DeviceType.CUDA:
+        continue
+    us = getattr(e, "self_device_time_total", None)
+    if us is None:
+        us = e.self_cuda_time_total
+    busy += us
+    if "flash" in e.key:
+        flash += us
+print(json.dumps({"ms_per_tracked_frame": per_frame, "median_ms": statistics.median(per_frame),
+                  "device_busy_ms": busy / 1e3, "flash_device_ms": flash / 1e3}))
+"""
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="+", help="checkout roots, run in this order")
+    ap.add_argument("--repeats", type=int, default=5)
+    args = ap.parse_args(argv)
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60)
+    if card.returncode != 0:
+        print("torch_propagation_ab: nvidia-smi failed (no CUDA device?)", file=sys.stderr)
+        return 2
+    for tree in args.trees:
+        root = os.path.abspath(tree)
+        env = dict(os.environ, PYTHONPATH=root)
+        out = subprocess.run([sys.executable, "-c", CHILD, str(args.repeats)], cwd=root, env=env,
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            raise RuntimeError(f"{tree}: the main path failed")
+        result = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps({"tree": tree, **result}), flush=True)
+    print(card.stdout.strip().splitlines()[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

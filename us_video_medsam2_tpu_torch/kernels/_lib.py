@@ -162,7 +162,9 @@ class _Recompute(torch.autograd.Function):
                     wrt.append(args[i])
         with torch.enable_grad():
             out = ctx.plain(*args)
-        grads = iter(torch.autograd.grad(out, wrt, g) if wrt else ())
+        # allow_unused: an input the plain version ignores for these arguments
+        # (LN parameters without ln_inside) gets no gradient, as in autograd
+        grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True) if wrt else ())
         return (None, None, *[next(grads) if need[i] else None for i in range(len(args))])
 
 
