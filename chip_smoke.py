@@ -6,7 +6,9 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. the build: every ``csrc/*.cu`` kernel compiled for sm_90a (timed as set-up);
+2. the build: every ``csrc/*.cu`` kernel compiled for sm_90a (timed as set-up),
+   with the registers and spills that ``-Xptxas -v`` reports for the kernels
+   of ``flash_dropout.cu`` and ``layer_norm.cu`` (a spill fails the run);
 3. each kernel against its plain PyTorch version at every shape the main path
    gives it, in bf16: max abs / rel error against the stated tolerance, and
    times (CUDA events over runs of back-to-back launches) of the kernel, the
@@ -27,7 +29,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    it (out, lse, dq, dk, dv) at the training path's memory self- and
    cross-attention shapes, at rates 0.1 and 0, with a check that must reject
    the plain version run with seed + 1, at edge shapes, and where the keep
-   hash's element index passes 2^31 and 2^32. The two kernels of the fused
+   hash's element index passes 2^31 and 2^32. The backward splits the
+   queries of its dk/dv blocks and the keys of its dq blocks
+   (``bwd_splits``): it is held again where the last ranges are ragged and
+   a query range lies past Lq, where a key range holds only masked keys
+   beside a batch with none valid, and where each has one split; two calls
+   on the same inputs must give bit-identical dq, dk and dv, and the check
+   must reject the plain split model combined without one query range's dk
+   partial. LayerNorm and the dropout backward, and ``F.layer_norm`` and
+   SDPA's backward beside them, also print their device time per call from
+   torch.profiler's kernel events (the CUDA-event time of back-to-back
+   calls is the host's at these sizes). The two kernels of the fused
    configuration are held at every shape the main path gives them (CXBlock
    at [1, 32, 32, 256] with layer scale 1 +- 0.1, on out and on out - x;
    the qkv window attention at the nine windowed blocks' geometries), again
@@ -206,6 +218,30 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(msgs, sources=("flash_dropout.cu", "layer_norm.cu")) -> None:
+    """Registers and spills of each kernel of ``sources`` from the build's
+    ``-Xptxas -v`` messages; raises if one of them spills."""
+    import re
+
+    for msg in msgs:
+        src = next((x for x in sources if msg.startswith(f"[nvcc {x}]")), None)
+        if src is None:
+            continue
+        func = None
+        for line in msg.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                func = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and func:
+                log(f"  {src} {func}: {line.strip()}")
+                if int(m.group(2)) or int(m.group(3)):
+                    raise AssertionError(f"{src}: kernel {func} spills registers")
+            elif "Used" in line and "registers" in line and func:
+                log(f"  {src} {func}: {line.split(':', 1)[-1].strip()}")
+
+
 def time_ms(fn, launches: int = 20, batches: int = 5, warmup: int = 3) -> float:
     """Median over ``batches`` of the CUDA-event time of ``launches``
     back-to-back calls, divided by ``launches`` (inputs stay in L2)."""
@@ -229,6 +265,30 @@ def time_ms(fn, launches: int = 20, batches: int = 5, warmup: int = 3) -> float:
 def bound_ms(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time per call of ``fn``: the self device time of every kernel
+    that ``calls`` calls launched, from torch.profiler's CUDA kernel events,
+    after one warm-up call. At these sizes the CUDA-event time of
+    back-to-back calls is the host's; this is the card's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    if not us > 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / 1e3 / calls
 
 
 def agreement(got, want, attention: bool) -> tuple[bool, str, float]:
@@ -267,6 +327,7 @@ class Row:
         self.max_abs = 0.0
         self.ms = self.plain_ms = self.bound = 0.0
         self.library_ms = None
+        self.device_ms = self.library_device_ms = None
         self.bytes_bound = 0.0
         self.ops_bound = 0.0
         self.shapes = []
@@ -275,7 +336,8 @@ class Row:
         """An untimed check's max abs error."""
         self.max_abs = max(self.max_abs, err)
 
-    def add(self, shape, count, err, ms, plain_ms, b, by, lib_ms=None):
+    def add(self, shape, count, err, ms, plain_ms, b, by, lib_ms=None, dev=None):
+        """``dev``: (kernel, library) device ms per call from the profiler, or None."""
         self.check(err)
         self.ms += count * ms
         self.plain_ms += count * plain_ms
@@ -286,12 +348,18 @@ class Row:
             self.ops_bound += count * b
         if lib_ms is not None:
             self.library_ms = (self.library_ms or 0.0) + count * lib_ms
-        self.shapes.append({"shape": shape, "per_frame": count, "max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                            "library_ms": lib_ms})
+        entry = {"shape": shape, "per_frame": count, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
         log(f"    {shape} x{count}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib} ms, "
             f"bound {b:.4f} ms ({by}), share of bound {b / ms:.3f}")
+        if dev is not None:
+            self.device_ms = (self.device_ms or 0.0) + count * dev[0]
+            self.library_device_ms = (self.library_device_ms or 0.0) + count * dev[1]
+            entry.update(device_ms=dev[0], library_device_ms=dev[1])
+            log(f"      device time per call (torch.profiler kernel events): kernel {dev[0]:.4f} ms, "
+                f"library {dev[1]:.4f} ms; per frame x{count}: {count * dev[0]:.4f} / {count * dev[1]:.4f} ms")
+        self.shapes.append(entry)
 
 
 def check_kernels(g) -> dict:
@@ -328,7 +396,8 @@ def check_kernels(g) -> dict:
         bnd, by = bound_ms(4 * n * d + 8 * d, 7 * n * d, F32_FLOPS)
         r.add([n, d], cnt, err, time_ms(lambda: layer_norm(x, w, b)),
               time_ms(lambda: layer_norm_plain(x, w, b)), bnd, by,
-              time_ms(lambda: F.layer_norm(x, (d,), wb, bb, 1e-6)))
+              time_ms(lambda: F.layer_norm(x, (d,), wb, bb, 1e-6)),
+              (device_ms(lambda: layer_norm(x, w, b)), device_ms(lambda: F.layer_norm(x, (d,), wb, bb, 1e-6))))
 
     r = rows["ln_mlp_residual"] = Row("ln_mlp_residual")
     log("ln_mlp_residual (two-pass LN eps 1e-6, exact GELU)")
@@ -838,6 +907,7 @@ def check_dropout_kernels(g, rows) -> None:
     import torch.nn.functional as F
 
     from us_video_medsam2_tpu_torch.kernels.flash_dropout import (
+        bwd_splits,
         flash_attention_train_plain,
         flash_dropout_bwd,
         flash_dropout_fwd,
@@ -880,21 +950,118 @@ def check_dropout_kernels(g, rows) -> None:
         bnd, by = bound_ms(qkv_bytes + mb + 2 * b * lq * d + 4 * b * lq, 4 * b * lq * valid * d, BF16_FLOPS)
         rf.add([b, lq, lk, d, m is not None], 4, err,
                time_ms(lambda: flash_dropout_fwd(q, k, v, m, seed, DROPOUT)), plain_f, bnd, by, lib_f)
+        check_bwd_deterministic(f"{name} q{lq} k{lk}", q, k, v, m, seed, out, lse, go)
+        if m is None:
+            reject_dropped_partial(q, k, v, seed, out, lse, go)
         # reads q, k, v, g, out, lse and the mask; writes dq and dk, dv over all Lk keys
         bwd_bytes = qkv_bytes + mb + 2 * 2 * b * lq * d + 4 * b * lq + 2 * b * lq * d + 2 * 2 * b * lk * d
         bnd, by = bound_ms(bwd_bytes, 10 * b * lq * valid * d, BF16_FLOPS)
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=am, dropout_p=DROPOUT)
+        dev_ms = (device_ms(lambda: flash_dropout_bwd(q, k, v, m, seed, DROPOUT, out, lse, go)),
+                  device_ms(lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True)))
+        del lib_out
         rb.add([b, lq, lk, d, m is not None], 4, err,
                time_ms(lambda: flash_dropout_bwd(q, k, v, m, seed, DROPOUT, out, lse, go)),
-               time_ms(plain_fb) - plain_f, bnd, by, time_ms(library_fb) - lib_f)
+               time_ms(plain_fb) - plain_f, bnd, by, time_ms(library_fb) - lib_f, dev_ms)
+        qs, ks = bwd_splits(b, lq, lk)
+        log(f"      backward grids: dk/dv {-(-lk // 64)} key tiles x {qs} query splits x {b}, "
+            f"dq {-(-lq // 64)} query tiles x {ks} key splits x {b}")
     log("  library = F.scaled_dot_product_attention(attn_mask=bool, dropout_p=0.1): another keep mask, "
-        "the same function in distribution; backward = (forward + backward) - forward")
+        "the same function in distribution; backward = (forward + backward) - forward; its device time "
+        "per call is that of torch.autograd.grad of one forward's output")
     log("flash_dropout edge shapes (bf16, untimed): ragged Lq/Lk, B2 H2, batch 1 all masked")
     q, k, v, go = rn(2, 2, 1000, d), rn(2, 2, 1100, d), rn(2, 2, 1100, d), rn(2, 2, 1000, d)
     m = torch.rand(2, 1100, generator=g, device=dev) > 0.3
     m[1] = False
     for rate in (DROPOUT, 0.0):
         check_dropout_call("B2 H2 q1000 k1100", q, k, v, m, seed, rate, go)
+    check_dropout_splits(rn, g, seed)
     check_dropout_index_wrap(rn, seed)
+
+
+def check_bwd_deterministic(name, q, k, v, mask, seed, out, lse, go) -> None:
+    """Two backward calls on the same inputs give bit-identical dq, dk, dv
+    (the splits are summed in a fixed order, with no atomics)."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.kernels.flash_dropout import flash_dropout_bwd
+
+    first = flash_dropout_bwd(q, k, v, mask, seed, DROPOUT, out, lse, go)
+    second = flash_dropout_bwd(q, k, v, mask, seed, DROPOUT, out, lse, go)
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
+    log(f"  {name}: two backward calls bit-identical (dq, dk, dv): {same}")
+    if not all(same):
+        raise AssertionError(f"{name}: the backward kernels are not deterministic")
+
+
+def reject_dropped_partial(q, k, v, seed, out, lse, go) -> None:
+    """The plain model of the backward's split (its every partial held against
+    autograd of the plain version), then the same model with one query
+    range's dk partial left out of the combine, which the check must reject."""
+    from us_video_medsam2_tpu_torch.kernels.flash_dropout import (
+        bwd_splits,
+        flash_dropout_bwd_split_partials,
+        flash_dropout_bwd_split_plain,
+        sum_in_order,
+    )
+
+    b, h, lq, d = q.shape
+    qs, ks = bwd_splits(b * h, lq, k.shape[2])
+    if qs < 2:
+        raise AssertionError(f"the dropped-partial self-test needs query splits, got {qs}")
+    _, _, (_, ref_dk, _) = plain_with_grads(q, k, v, None, seed, DROPOUT, go)
+    model = flash_dropout_bwd_split_plain(q, k, v, None, seed, DROPOUT, out, lse, go, qs, ks)
+    ok, msg, _ = grad_agreement(model[1], ref_dk)
+    log(f"  split model ({qs} query, {ks} key splits) dk: {msg} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the plain split model disagrees with autograd of the plain version")
+    _, dk_i, _ = flash_dropout_bwd_split_partials(q, k, v, None, seed, DROPOUT, out, lse, go, qs, ks)
+    dropped = (sum_in_order(dk_i[1:]) * d**-0.5).to(k.dtype)
+    ok, msg, _ = grad_agreement(dropped, ref_dk)
+    log(f"  self-test, dk without query range 0's partial: {msg} {'passed (FAIL)' if ok else 'rejected'}")
+    if ok:
+        raise AssertionError("the backward check does not see a dropped dk partial")
+
+
+def check_dropout_splits(rn, g, seed) -> None:
+    """The backward kernels where their splits have edges: ragged last query
+    and key ranges with a query range past Lq, a key range holding only masked
+    keys beside a batch with no valid key, and one split of each (no
+    combine); each held as ``check_dropout_call`` holds it, and repeated
+    bit for bit."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.kernels.flash_attention import split_ranges
+    from us_video_medsam2_tpu_torch.kernels.flash_dropout import bwd_splits, flash_dropout_fwd
+
+    log("flash_dropout backward split geometry (bf16, untimed)")
+    for name, (b, h, lq, lk) in (("last ranges ragged, a query range past Lq", (1, 1, 1000, 1100)),
+                                 ("a key range of masked keys only, batch 1 all masked", (2, 1, 1024, 1024)),
+                                 ("one split of each", (2, 4, 1024, 1000))):
+        qs, ks = bwd_splits(b * h, lq, lk)
+        q_sizes = [hi - lo for lo, hi in split_ranges(lq, qs, 64)]
+        k_ranges = split_ranges(lk, ks, 64)
+        k_sizes = [hi - lo for lo, hi in k_ranges]
+        mask = torch.rand(b, lk, generator=g, device="cuda") > 0.3
+        if name.startswith("last ranges"):
+            last_q = [x for x in q_sizes if x][-1]
+            last_k = [x for x in k_sizes if x][-1]
+            ok = 0 < last_q < q_sizes[0] and 0 < last_k < k_sizes[0] and 0 in q_sizes
+        elif name.startswith("a key range"):
+            lo, hi = k_ranges[1]
+            mask[0, lo:hi] = False
+            mask[1] = False
+            ok = ks > 2 and hi > lo and bool(mask[0].any())
+        else:
+            ok = qs == ks == 1
+        if not ok:
+            raise AssertionError(f"dropout split case '{name}': {qs} query splits {q_sizes}, "
+                                 f"{ks} key splits {k_sizes}")
+        q, k, v, go = rn(b, h, lq, 256), rn(b, h, lk, 256), rn(b, h, lk, 256), rn(b, h, lq, 256)
+        label = f"B{b} H{h} q{lq} k{lk}, splits {q_sizes} x {k_sizes}: {name}"
+        check_dropout_call(label, q, k, v, mask, seed, DROPOUT, go)
+        out, lse = flash_dropout_fwd(q, k, v, mask, seed, DROPOUT)
+        check_bwd_deterministic(label, q, k, v, mask, seed, out, lse, go)
 
 
 def check_dropout_index_wrap(rn, seed) -> None:
@@ -1295,9 +1462,12 @@ def main(argv=None) -> int:
     lib = _lib.build(log=msgs.append)
     _lib.load()
     build_s = time.perf_counter() - t0
+    log(f"[2/7] build: {lib.name} in {build_s:.2f} s (set-up)")
     if msgs:
         (lib.parent / "nvcc.log").write_text("\n".join(msgs))
-    log(f"[2/7] build: {lib.name} in {build_s:.2f} s (set-up)")
+        ptxas_report(msgs)
+    else:
+        log("  (library built before this run: no compiler report)")
 
     # 3. each kernel against its plain version
     log("[3/7] kernels vs plain versions at the main-path shapes (bf16)")

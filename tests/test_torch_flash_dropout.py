@@ -7,8 +7,10 @@ Pallas interpret mode, in f32, to 1e-5 absolute (the same math: the kernel
 accumulates the softmax online in tiles, the plain version in one pass), and
 dq/dk/dv from autograd of the plain version against ``jax.grad`` through the
 JAX custom_vjp (its backward kernel, interpret mode) to 1e-4 relative per
-gradient. The kernels themselves need a GPU and are held against the plain
-version in chip_smoke.py.
+gradient. The plain model of the backward kernels' split over queries and
+keys (``flash_dropout_bwd_split_plain``) is held against both at every
+split case. The kernels themselves need a GPU and are held against the
+plain version in chip_smoke.py.
 """
 
 import jax
@@ -111,3 +113,68 @@ def test_wrappers_take_the_plain_version_on_cpu_and_raise_elsewhere():
         tfd.flash_attention_train(*meta, None, 1, 0.1)
     with pytest.raises(ValueError):
         tfd.flash_dropout_bwd(*meta, None, 1, 0.1, meta[0], torch.empty(1, 1, 8, device="meta"), meta[0])
+
+
+# (name, q_splits, k_splits): the plain model of the backward kernels' split
+# over queries (dk, dv) and keys (dq), at Lq 200 and Lk 300 in 64-row tiles:
+# ragged last tiles and ranges, and a query range past Lq at (3, 2)
+BWD_SPLIT_CASES = [
+    ("splits 1 1", 1, 1),
+    ("splits 3 2", 3, 2),
+    ("splits 2 5, last ranges ragged", 2, 5),
+    ("a key range of masked keys only", 2, 5),
+    ("a batch with every key masked", 3, 2),
+]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name,q_splits,k_splits", BWD_SPLIT_CASES)
+def test_bwd_split_plain_matches_jax_kernel_and_autograd(name, q_splits, k_splits, rate):
+    """f32, so the model's roundings of P·keep and dS are exact: its sums over
+    the splits against autograd of the plain version and ``jax.grad`` through
+    the JAX kernel (interpret mode), 1e-4 relative per gradient. On a batch
+    whose keys are all masked the JAX backward recomputes P = exp(0) = 1 at
+    the -1e30 floor instead of its forward's 1/Lk, so that batch is held
+    against autograd alone."""
+    from us_video_medsam2_tpu_torch.kernels.flash_attention import split_ranges
+
+    b, h, lq, lk, d = 2, 1, 200, 300, 64
+    q, k, v, mask = _inputs(b, h, lq, lk, d, seed=6)
+    if name == "a key range of masked keys only":
+        lo, hi = split_ranges(lk, k_splits, tfd.BLOCK)[1]
+        mask[0, lo:hi] = False
+        assert mask[0].any() and not mask[0, lo:hi].any()
+    all_masked = name == "a batch with every key masked"
+    if all_masked:
+        mask[1] = False
+    go = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    seed = 13
+
+    tq, tk, tv = (t(x).requires_grad_(True) for x in (q, k, v))
+    out, lse = tfd.flash_attention_train_plain(tq, tk, tv, t(mask), seed, rate)
+    out.backward(t(go))
+    got = tfd.flash_dropout_bwd_split_plain(t(q), t(k), t(v), t(mask), seed, rate, out.detach(),
+                                            lse.detach(), t(go), q_splits, k_splits)
+
+    def loss(qq, kk, vv):
+        o = jfd.flash_attention_train(qq, kk, vv, jnp.asarray(mask), seed, rate, 32, 64, True)
+        return jnp.sum(o * jnp.asarray(go))
+
+    want_jax = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jax_rows = slice(0, 1) if all_masked else slice(None)
+    for gname, g, w_auto, w_jax in zip(("dq", "dk", "dv"), got, (tq.grad, tk.grad, tv.grad), want_jax):
+        assert torch.isfinite(g).all()
+        for ref, rows, label in ((n(w_auto), slice(None), "autograd"), (np.asarray(w_jax), jax_rows, "jax")):
+            w = ref[rows]
+            rel = np.linalg.norm(n(g)[rows] - w) / np.linalg.norm(w)
+            assert rel <= 1e-4, f"{gname} vs {label}: rel {rel:.3e}"
+
+
+def test_bwd_splits_fill_the_card_from_the_shape():
+    assert tfd.bwd_splits(3, 1024, 1024) == (2, 2)  # 48-block grids at the training self-attention
+    # 483 dk/dv blocks already fill the card; each walks 16 query tiles, so
+    # the dq blocks walk at most 16 of the 161 key tiles
+    assert tfd.bwd_splits(3, 1024, 10268) == (1, 11)
+    assert tfd.bwd_splits(260, 4096, 4096) == (1, 1)
+    assert tfd.bwd_splits(1, 1000, 1100) == (7, 6)  # 18 key tiles x 7; walks of 3 tiles
+    assert tfd.bwd_splits(8, 1024, 1000) == (1, 1)

@@ -29,9 +29,11 @@
 //    with no key, m_i = -inf), out = bf16(sum_i w_i O_i / max(sum_i w_i l_i, 1e-30)).
 // Scores are kept in log2 units (scale * log2 e folded in) so every
 // exponential is one exp2f. The score matrix never reaches device memory.
-#include "common.cuh"
+#include "warp_mma.cuh"
 
 namespace {
+
+using namespace usm;
 
 constexpr int D = 256;
 constexpr int WARPS = 4;
@@ -45,47 +47,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr size_t Q_BYTES = sizeof(usm::bf16) * BQ * LD;
 constexpr size_t TILE_BYTES = sizeof(usm::bf16) * BK * LD;
 constexpr size_t SMEM_BYTES = Q_BYTES + 4 * TILE_BYTES;  // Q, then K and V in two stages
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t r[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t r[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c[16x8] += a[16x16] . b[16x8], bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // rows [row0, row0 + rows) of a [*, D] head into shared memory (row stride LD),
 // rows at or past `valid` zero-filled

@@ -9,8 +9,11 @@ library name carries a hash of the sources and flags, so an edit rebuilds.
 Each C entry point takes device pointers and a ``cudaStream_t`` as
 ``c_void_p``, launches on that stream, allocates nothing, and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
-``with_plain_grad`` gives a forward-only kernel the gradient of its plain
-version, recomputed in the backward pass.
+A wrapper binds its entry point (``fn``) once, at its first launch, and
+keeps it in a module global. ``with_plain_grad`` gives a forward-only
+kernel the gradient of its plain version, recomputed in the backward pass;
+when no gradient is wanted it calls the kernel alone, so a call under
+``torch.inference_mode()`` or ``torch.no_grad()`` pays for no autograd node.
 """
 
 from __future__ import annotations
@@ -126,7 +129,9 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current ``cudaStream_t`` of t's device, without making a
+    ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 P = ctypes.c_void_p
@@ -169,5 +174,11 @@ class _Recompute(torch.autograd.Function):
 
 
 def with_plain_grad(kernel, plain, *args):
-    """``kernel(*args)`` whose gradient is that of ``plain(*args)``."""
-    return _Recompute.apply(kernel, plain, *args)
+    """``kernel(*args)`` whose gradient is that of ``plain(*args)``; the
+    kernel alone, with no autograd node, when grad mode is off or no tensor
+    argument requires a gradient."""
+    if torch.is_grad_enabled():
+        for a in args:  # a loop, not any() over a generator: this runs on every call
+            if isinstance(a, torch.Tensor) and a.requires_grad:
+                return _Recompute.apply(kernel, plain, *args)
+    return kernel(*args)

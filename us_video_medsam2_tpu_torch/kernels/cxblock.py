@@ -56,7 +56,7 @@ def cxblock(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps: float = 1e-6)
     biases, LN parameters and γ) or raises. The gradient is the plain
     version's, recomputed in the backward pass (cast w1/w2 at use to keep f32
     master weights)."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return cxblock_plain(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps)
     return _lib.with_plain_grad(_kernel, cxblock_plain, x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2,
                                 gamma, eps)
@@ -81,13 +81,16 @@ def _kernel(x, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, eps):
         if tuple(t.shape) != shape or t.dtype != dt or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"cxblock kernel: {name} must be contiguous {dt} {shape}")
     out = torch.empty_like(x)
-    fn = _lib.fn("usm_cxblock_bf16", [_lib.P] * 11 + [_lib.I] * 5 + [_lib.F, _lib.P])
-    rc = fn(x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
-            out.data_ptr(), b, h, w, c, f, float(eps), _lib.stream_ptr(x))
+    global _fn
+    if _fn is None:
+        _fn = _lib.fn("usm_cxblock_bf16", [_lib.P] * 11 + [_lib.I] * 5 + [_lib.F, _lib.P])
+    rc = _fn(x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+             out.data_ptr(), b, h, w, c, f, float(eps), _lib.stream_ptr(x))
     _lib.check(rc, "cxblock")
     cxblock.launches += 1
     return out
 
 
 cxblock.launches = 0
+_fn = None  # usm_cxblock_bf16, bound at the first launch

@@ -100,7 +100,7 @@ def flash_attention(q, k, v, key_mask=None):
     """softmax(q·kᵀ/√D, masked)·v. CPU tensors take the plain version; a CUDA
     tensor launches the kernel (bf16, D in SUPPORTED_D) or raises. The
     gradient is the plain version's, recomputed in the backward pass."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return flash_attention_plain(q, k, v, key_mask)
     return _lib.with_plain_grad(_kernel, flash_attention_plain, q, k, v, key_mask)
 
@@ -126,13 +126,16 @@ def _kernel(q, k, v, key_mask):
     if splits > 1:
         o_part = torch.empty((splits, b * h, lq, d), dtype=torch.float32, device=q.device)
         ml_part = torch.empty((splits, b * h, lq, 2), dtype=torch.float32, device=q.device)
-    fn = _lib.fn("usm_flash_attention_bf16", [_lib.P] * 7 + [_lib.I] * 6 + [_lib.F, _lib.P])
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-            None if o_part is None else o_part.data_ptr(), None if ml_part is None else ml_part.data_ptr(),
-            b * h, h, lq, lk, d, splits, float(d**-0.5), _lib.stream_ptr(q))
+    global _fn
+    if _fn is None:
+        _fn = _lib.fn("usm_flash_attention_bf16", [_lib.P] * 7 + [_lib.I] * 6 + [_lib.F, _lib.P])
+    rc = _fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+             None if o_part is None else o_part.data_ptr(), None if ml_part is None else ml_part.data_ptr(),
+             b * h, h, lq, lk, d, splits, float(d**-0.5), _lib.stream_ptr(q))
     _lib.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+_fn = None  # usm_flash_attention_bf16, bound at the first launch

@@ -7,10 +7,15 @@ mean², 0), y = (x − mean)·rsqrt(var + eps)·w + b with f32 scale/bias, cast
 down once.
 
 On the H100 it is bound by bytes: 4 flop per element against 4 bytes of
-traffic (bf16 in, bf16 out). The CUDA kernel (``csrc/layer_norm.cu``) gives
-one warp to each row, reads the row once into registers with neighbouring
-lanes on neighbouring addresses, reduces both sums with warp shuffles and
-writes once — no shared memory and no second pass over device memory.
+traffic (bf16 in, bf16 out), under a microsecond a call at the trunk's
+shapes, so the host's cost of a call matters as much as the kernel. The CUDA
+kernel (``csrc/layer_norm.cu``) gives each row a group of D/24 lanes (several
+rows to a warp below D 768), each lane reading three 16-byte chunks with
+neighbouring lanes on neighbouring addresses; it keeps w and b in registers
+across the rows a thread takes, reduces both sums with shuffles inside the
+group and writes once in 16-byte stores. The wrapper checks only what keeps
+the kernel's memory accesses in bounds and calls the bound entry point
+directly when no gradient is wanted.
 """
 
 from __future__ import annotations
@@ -40,28 +45,32 @@ def layer_norm(
     """LayerNorm of x [..., d]. CPU tensors take the plain version; a CUDA
     tensor launches the kernel (bf16 x, f32 weight/bias) or raises. The
     gradient is the plain version's, recomputed in the backward pass."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return layer_norm_plain(x, weight, bias, eps)
     return _lib.with_plain_grad(_kernel, layer_norm_plain, x, weight, bias, eps)
 
 
 def _kernel(x, weight, bias, eps):
+    global _fn
     d = x.shape[-1]
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"layer_norm kernel takes contiguous bf16 CUDA x, got {x.dtype} {x.device}")
+    if not (x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous() and x.data_ptr() % 16 == 0):
+        raise ValueError(f"layer_norm kernel takes contiguous, aligned bf16 CUDA x, got {x.dtype} {x.device}")
     if d not in SUPPORTED_D:
         raise ValueError(f"layer_norm kernel: d={d} not in {SUPPORTED_D}")
+    dev = x.get_device()
     for p in (weight, bias):
-        if p.dtype != torch.float32 or p.shape != (d,) or p.device != x.device:
-            raise ValueError("layer_norm kernel takes f32 weight/bias of shape [d] on x's device")
-    rows = x.numel() // d
+        if not (p.dtype == torch.float32 and p.shape == (d,) and p.get_device() == dev and p.is_contiguous()
+                and p.data_ptr() % 16 == 0):
+            raise ValueError("layer_norm kernel takes contiguous, aligned f32 weight/bias of shape [d] on x's device")
     out = torch.empty_like(x)
-    f = _lib.fn("usm_layer_norm_bf16", [_lib.P] * 4 + [_lib.I, _lib.I, _lib.F, _lib.P])
-    rc = f(x.data_ptr(), weight.contiguous().data_ptr(), bias.contiguous().data_ptr(),
-           out.data_ptr(), rows, d, float(eps), _lib.stream_ptr(x))
+    if _fn is None:
+        _fn = _lib.fn("usm_layer_norm_bf16", [_lib.P] * 4 + [_lib.I, _lib.I, _lib.F, _lib.P])
+    rc = _fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), x.numel() // d, d, float(eps),
+             _lib.stream_ptr(x))
     _lib.check(rc, "layer_norm")
     layer_norm.launches += 1
     return out
 
 
+_fn = None  # usm_layer_norm_bf16, bound at the first launch
 layer_norm.launches = 0

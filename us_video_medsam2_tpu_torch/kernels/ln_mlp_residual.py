@@ -47,7 +47,7 @@ def ln_mlp_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6):
     tensor launches the kernel (bf16 x/w1/w2, f32 LN params and biases) or
     raises. The gradient is the plain version's, recomputed in the backward
     pass (cast w1/w2 at use to keep f32 master weights)."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
     return _lib.with_plain_grad(_kernel, ln_mlp_residual_plain, x, ln_w, ln_b, w1, b1, w2, b2, eps)
 
@@ -68,13 +68,16 @@ def _kernel(x, ln_w, ln_b, w1, b1, w2, b2, eps):
         if tuple(t.shape) != shape or t.dtype != dt or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"ln_mlp_residual kernel: {name} must be contiguous {dt} {shape}")
     out = torch.empty_like(x)
-    fn = _lib.fn("usm_ln_mlp_residual_bf16", [_lib.P] * 8 + [_lib.I] * 3 + [_lib.F, _lib.P])
-    rc = fn(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, d, f, float(eps),
-            _lib.stream_ptr(x))
+    global _fn
+    if _fn is None:
+        _fn = _lib.fn("usm_ln_mlp_residual_bf16", [_lib.P] * 8 + [_lib.I] * 3 + [_lib.F, _lib.P])
+    rc = _fn(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+             w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, d, f, float(eps),
+             _lib.stream_ptr(x))
     _lib.check(rc, "ln_mlp_residual")
     ln_mlp_residual.launches += 1
     return out
 
 
 ln_mlp_residual.launches = 0
+_fn = None  # usm_ln_mlp_residual_bf16, bound at the first launch

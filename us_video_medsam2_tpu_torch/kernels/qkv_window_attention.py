@@ -46,7 +46,7 @@ def qkv_window_attention(y, w, b, ws: int, nh: int, q_pool: bool) -> torch.Tenso
     version; a CUDA tensor launches the kernel (bf16 y and w, f32 b) or
     raises. The gradient is the plain version's, recomputed in the backward
     pass (cast w at use to keep f32 master weights)."""
-    if y.device.type == "cpu":
+    if y.is_cpu:
         return qkv_window_attention_plain(y, w, b, ws, nh, q_pool)
     return _lib.with_plain_grad(_kernel, qkv_window_attention_plain, y, w, b, ws, nh, q_pool)
 
@@ -69,12 +69,15 @@ def _kernel(y, w, b, ws, nh, q_pool):
         raise ValueError(f"qkv_window_attention kernel: ws={ws} must divide {hp}x{wp}, <= {MAX_WS}")
     wso = ws // 2 if q_pool else ws
     out = torch.empty((bsz, hp // ws * wso, wp // ws * wso, nh * hd), dtype=y.dtype, device=y.device)
-    fn = _lib.fn("usm_qkv_window_attention_bf16", [_lib.P] * 4 + [_lib.I] * 8 + [_lib.F, _lib.P])
-    rc = fn(y.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, hp, wp, cin, ws, nh, hd,
-            int(q_pool), float(hd**-0.5), _lib.stream_ptr(y))
+    global _fn
+    if _fn is None:
+        _fn = _lib.fn("usm_qkv_window_attention_bf16", [_lib.P] * 4 + [_lib.I] * 8 + [_lib.F, _lib.P])
+    rc = _fn(y.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, hp, wp, cin, ws, nh, hd,
+             int(q_pool), float(hd**-0.5), _lib.stream_ptr(y))
     _lib.check(rc, "qkv_window_attention")
     qkv_window_attention.launches += 1
     return out
 
 
 qkv_window_attention.launches = 0
+_fn = None  # usm_qkv_window_attention_bf16, bound at the first launch

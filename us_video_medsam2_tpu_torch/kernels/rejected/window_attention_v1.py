@@ -80,7 +80,7 @@ def window_attention_v1(x, gamma, beta, wq, wk, wv, bq, bk, bv, wo, bo,
     kernel casts them) or raises. The gradient is the plain version's,
     recomputed in the backward pass."""
     args = (x, gamma, beta, wq, wk, wv, bq, bk, bv, wo, bo, ws, q_pool, ln_inside, eps)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return window_attention_v1_plain(*args)
     return _lib.with_plain_grad(_kernel, window_attention_v1_plain, *args)
 
@@ -113,16 +113,19 @@ def _kernel(x, gamma, beta, wq, wk, wv, bq, bk, bv, wo, bo, ws, q_pool, ln_insid
     hpo, wpo = hp // ws * wso, wp // ws * wso
     o = torch.empty((b, hpo, wpo, nh * dh), dtype=dt, device=x.device)
     out = torch.empty((b, hpo, wpo, co), dtype=dt, device=x.device)
-    fn = _lib.fn("usm_window_attention_v1_bf16", [_lib.P] * 13 + [_lib.I] * 10 + [_lib.F, _lib.F, _lib.P])
-    rc = fn(x.data_ptr(), *(p.data_ptr() for p in params), o.data_ptr(), out.data_ptr(),
-            b, hp, wp, c, nh, dh, co, ws, int(q_pool), int(ln_inside), float(eps), float(dh**-0.5),
-            _lib.stream_ptr(x))
+    global _fn
+    if _fn is None:
+        _fn = _lib.fn("usm_window_attention_v1_bf16", [_lib.P] * 13 + [_lib.I] * 10 + [_lib.F, _lib.F, _lib.P])
+    rc = _fn(x.data_ptr(), *(p.data_ptr() for p in params), o.data_ptr(), out.data_ptr(),
+             b, hp, wp, c, nh, dh, co, ws, int(q_pool), int(ln_inside), float(eps), float(dh**-0.5),
+             _lib.stream_ptr(x))
     _lib.check(rc, "window_attention_v1")
     window_attention_v1.launches += 1
     return out
 
 
 window_attention_v1.launches = 0
+_fn = None  # usm_window_attention_v1_bf16, bound at the first launch
 
 
 def split_qkv_params(wqkv, bqkv, wproj, n_heads: int):

@@ -56,7 +56,7 @@ def window_attention(qkv: torch.Tensor, ws: int, nh: int, q_pool: bool) -> torch
     """[B, Hp, Wp, 3·nh·hd] -> [B, Hpo, Wpo, nh·hd]. CPU tensors take the plain
     version; a CUDA tensor launches the kernel (bf16) or raises. The gradient
     is the plain version's, recomputed in the backward pass."""
-    if qkv.device.type == "cpu":
+    if qkv.is_cpu:
         return window_attention_plain(qkv, ws, nh, q_pool)
     return _lib.with_plain_grad(_kernel, window_attention_plain, qkv, ws, nh, q_pool)
 
@@ -73,12 +73,15 @@ def _kernel(qkv, ws, nh, q_pool):
         raise ValueError(f"window_attention kernel: ws={ws} must divide {hp}x{wp}, <= {MAX_WS}")
     wso = ws // 2 if q_pool else ws
     out = torch.empty((b, hp // ws * wso, wp // ws * wso, nh * hd), dtype=qkv.dtype, device=qkv.device)
-    fn = _lib.fn("usm_window_attention_bf16", [_lib.P, _lib.P] + [_lib.I] * 7 + [_lib.F, _lib.P])
-    rc = fn(qkv.data_ptr(), out.data_ptr(), b, hp, wp, ws, nh, hd, int(q_pool),
-            float(hd**-0.5), _lib.stream_ptr(qkv))
+    global _fn
+    if _fn is None:
+        _fn = _lib.fn("usm_window_attention_bf16", [_lib.P, _lib.P] + [_lib.I] * 7 + [_lib.F, _lib.P])
+    rc = _fn(qkv.data_ptr(), out.data_ptr(), b, hp, wp, ws, nh, hd, int(q_pool),
+             float(hd**-0.5), _lib.stream_ptr(qkv))
     _lib.check(rc, "window_attention")
     window_attention.launches += 1
     return out
 
 
 window_attention.launches = 0
+_fn = None  # usm_window_attention_bf16, bound at the first launch
