@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. the build: every ``csrc/*.cu`` kernel compiled for sm_90a (timed as set-up),
    with the registers and spills that ``-Xptxas -v`` reports for the kernels
-   of ``flash_dropout.cu`` and ``layer_norm.cu`` (a spill fails the run);
+   of ``flash_dropout.cu``, ``layer_norm.cu`` and the two window-attention
+   sources (both head-dim instantiations; a spill fails the run);
 3. each kernel against its plain PyTorch version at every shape the main path
    gives it, in bf16: max abs / rel error against the stated tolerance, and
    times (CUDA events over runs of back-to-back launches) of the kernel, the
@@ -58,17 +59,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    with the other value) and at the six geometries of the JAX package's v1
    test at B 2 with both ln_inside values, with a check that must reject
    the plain version whose pad tokens' LN output is 0 instead of beta, and
-   its gradient as those above;
+   its gradient as those above. Window attention and its qkv variant are
+   held and timed at head dim 64 too, at EfficientMedSAM-S's and -Ti's ws-14
+   blocks ([1, 42, 42, 3·nh·64], nh 6 and 3, Cin 384 and 192), and again
+   untimed at B 2 and with q-pooling on a 28x28 map; the check must reject
+   the plain output with heads 0 and 1 swapped; window attention's device
+   time per call (torch.profiler) is printed at the ws-14 shapes of both
+   head dims;
 4. the main path: ``sam2.1_hiera_t512`` at full width in bf16 on the card with
    weights from a seeded generator (the object-score head's output bias is
    set to +10 so the object is present on every frame and the masks are not
    all "no object"), on a seeded video of smooth moving blobs:
-   ``init_state`` -> ``add_new_points_or_box`` (frame 0, one click) ->
-   ``propagate_in_video``. Launch counters are zeroed just before and read
-   just after and must equal 9 window-attention, 12 LayerNorm and 12 MLP
-   launches per encoded frame and 8 flash launches per tracked frame. The
-   first frames are run again on the host CPU (plain versions, f32) with the
-   same weights and compared per frame;
+   ``build_sam2_video_predictor`` -> ``init_state`` ->
+   ``add_new_points_or_box`` (frame 0, one click) -> ``propagate_in_video``.
+   Launch counters are zeroed just before and read just after and must
+   equal 9 window-attention, 12 LayerNorm and 12 MLP launches per encoded
+   frame and 8 flash launches per tracked frame. The first frames are run
+   again on the host CPU (plain versions, f32) with the same weights and
+   compared per frame;
 5. the fused configuration: phase 4 again with the JAX package's two opt-in
    switches set (``US_MEDSAM2_ENABLE_FUSED_CXBLOCK``,
    ``US_MEDSAM2_FUSE_QKV_WINDOW_ATTN``): 9 qkv-window-attention and no
@@ -76,7 +84,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    memory encoding, the same LayerNorm, MLP and flash counts, the frames
    held against phase 4's host reference, and ms per tracked frame with the
    switches off and on printed side by side;
-6. the training path: the ``sam2.1_hiera_t512`` training step at full width
+6. EfficientMedSAM-S: phases 4 and 5 for ``efficientmedsam_s_512`` (the
+   ViTDet trunk at embed 384, 6 heads of 64) through
+   ``build_efficienttam_video_predictor``, with the same seeded weights rule
+   (and a margin on one IoU-head output, ``VIT_IOU_MARGIN``) and video: 8
+   window-attention (head dim 64), 12 LayerNorm and 12 MLP launches per
+   encoded frame and 8 flash per tracked frame; fused, 8
+   qkv-window-attention and no window-attention launches per encoded frame
+   and 2 CXBlock launches per memory encoding; both held against one host
+   f32 run;
+7. the training path: the ``sam2.1_hiera_t512`` training step at full width
    (T = 4 frames, B = 1 video, O = 3 objects, ``TrainSimConfig()``, temporal
    consistency loss 0.5, AdamW with layer decay) in bf16 with f32 master
    weights on a seeded batch of moving blobs and their masks: one warm-up
@@ -88,7 +105,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    card with both switches set (exact qkv-window-attention and CXBlock
    counts), and on the host CPU (plain versions, f32): loss and
    whole-gradient agreement of each card step with the host's;
-7. the kernels line, the card line, and the device line last.
+8. each path's launch counts, the kernels line (launches summed over the
+   runs of both models), the card line, and the device line last.
 
 Exits non-zero without a result when no CUDA device is present or when the
 port's package is not beside this script.
@@ -156,14 +174,25 @@ SOURCES = {k: f"us_video_medsam2_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES["flash_dropout_fwd"] = SOURCES["flash_dropout_bwd"] = (
     "us_video_medsam2_tpu_torch/csrc/flash_dropout.cu")
 
-# main-path shapes of sam2.1_hiera_t512 at 512x512, with launches per frame
-LN_SHAPES = [((16384, 96), 2), ((4096, 192), 2), ((1024, 384), 7), ((256, 768), 1)]
-MLP_SHAPES = [((16384, 96, 384), 1), ((4096, 192, 768), 2), ((1024, 384, 1536), 7),
+# main-path shapes at 512x512 with launches per frame: sam2.1_hiera_t512's,
+# plus efficientmedsam_s_512's where it runs the same shape (its 12 blocks'
+# LN and MLP tail at 1024 tokens of 384, and the same memory attention), so a
+# row's ms and bound cover one frame of each model, as its launches cover
+# both models' runs
+LN_SHAPES = [((16384, 96), 2), ((4096, 192), 2), ((1024, 384), 7 + 12), ((256, 768), 1)]
+MLP_SHAPES = [((16384, 96, 384), 1), ((4096, 192, 768), 2), ((1024, 384, 1536), 7 + 12),
               ((256, 768, 3072), 2)]
+FLASH_PER_FRAME = 4 + 4  # each of the self and cross shapes, per tracked frame of each model
 WIN_SHAPES = [((128, 8, 1, False), 1), ((128, 8, 2, True), 1), ((64, 4, 2, False), 1),
               ((64, 4, 4, True), 1), ((42, 14, 4, False), 3), ((42, 14, 8, True), 1),
               ((21, 7, 8, False), 1)]
 HD = 96
+# EfficientMedSAM-S's ws-14 blocks at head dim 64 (32x32 tokens padded to
+# 42x42, 8 launches per encoded frame) and -Ti's (embed 192, 3 heads; on no
+# path this script drives), for window attention and its qkv variant
+HD_VIT = 64
+WIN64_SHAPES = [((42, 14, 6, False), 8), ((42, 14, 3, False), 0)]
+QKV64_SHAPES = [((42, 14, 6, False, 384, 32), 8), ((42, 14, 3, False, 192, 32), 0)]
 # the fused configuration: (Hp, ws, nh, q_pool, Cin, real map side) of each
 # windowed block's in-kernel qkv projection (32 -> 42 and 16 -> 21 are the
 # zero-padded maps of stages 3 and 4), and the memory encoder's CXBlock map
@@ -190,6 +219,17 @@ SEED = 0
 PER_ENCODED_FRAME = {"window_attention": 9, "layer_norm": 12, "ln_mlp_residual": 12}
 PER_TRACKED_FRAME = {"flash_attention": 8}
 PER_ENCODED_FRAME_FUSED = {"qkv_window_attention": 9, "layer_norm": 12, "ln_mlp_residual": 12}
+# efficientmedsam_s_512: the ViTDet trunk's 8 ws-14 blocks, 12 norm1 sites and 12 MLP tails
+PER_ENCODED_FRAME_VIT = {"window_attention": 8, "layer_norm": 12, "ln_mlp_residual": 12}
+PER_ENCODED_FRAME_VIT_FUSED = {"qkv_window_attention": 8, "layer_norm": 12, "ln_mlp_residual": 12}
+# Seeded weights leave efficientmedsam_s_512's three multimask IoU predictions
+# within bf16's resolution of each other (frame 3: 0.5273 / 0.4644 / 0.5274 in
+# f32, 0.5273 / 0.4629 / 0.5273 in bf16, the plain versions on the host), so
+# the card and the host f32 run pick different masks and the frame's logits
+# differ by 0.55 rel-L2. A margin of 1 on one IoU logit (output 2: the second
+# multimask mask, a third of the frame, where outputs 1 and 3 give 0.8-1.0)
+# makes the pick the same on both; t512 runs without a margin.
+VIT_IOU_MARGIN = (2, 1.0)
 PER_MEMORY_ENCODING = {"cxblock": 2}  # fuser_layers CXBlocks
 # the training path
 TRAIN_T = 4
@@ -218,7 +258,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_report(msgs, sources=("flash_dropout.cu", "layer_norm.cu")) -> None:
+def ptxas_report(msgs, sources=("flash_dropout.cu", "layer_norm.cu", "window_attention.cu",
+                                "qkv_window_attention.cu")) -> None:
     """Registers and spills of each kernel of ``sources`` from the build's
     ``-Xptxas -v`` messages; raises if one of them spills."""
     import re
@@ -267,28 +308,41 @@ def bound_ms(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def device_ms(fn, calls: int = 10) -> float:
+def device_ms(fn, calls: int = 10, attempts: int = 3) -> float:
     """Device time per call of ``fn``: the self device time of every kernel
     that ``calls`` calls launched, from torch.profiler's CUDA kernel events,
     after one warm-up call. At these sizes the CUDA-event time of
-    back-to-back calls is the host's; this is the card's."""
+    back-to-back calls is the host's; this is the card's. Profiles on an
+    H100 have reported no kernel at all, or the kernels of only some of the
+    calls (3 of 10). So a profile whose kernel count is neither a multiple
+    of ``calls`` (every call launches the same kernels) nor that of the
+    profile before it is taken again, up to ``attempts`` times, and the
+    profile that saw the most kernels is kept."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if t is None else t
-    if not us > 0:
+    best, last = (0, 0.0), None
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us, kernels = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                t = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if t is None else t
+                kernels += e.count
+        best = max(best, (kernels, us))
+        if kernels and (kernels % calls == 0 or kernels == last):
+            break
+        log(f"      the profiler saw {kernels} kernels for {calls} calls (attempt {attempt} of {attempts})")
+        last = kernels
+    if not best[0]:
         raise AssertionError("the profiler saw no device time")
-    return us / 1e3 / calls
+    return best[1] / 1e3 / calls
 
 
 def agreement(got, want, attention: bool) -> tuple[bool, str, float]:
@@ -337,7 +391,7 @@ class Row:
         self.max_abs = max(self.max_abs, err)
 
     def add(self, shape, count, err, ms, plain_ms, b, by, lib_ms=None, dev=None):
-        """``dev``: (kernel, library) device ms per call from the profiler, or None."""
+        """``dev``: (kernel, library or None) device ms per call from the profiler, or None."""
         self.check(err)
         self.ms += count * ms
         self.plain_ms += count * plain_ms
@@ -355,10 +409,15 @@ class Row:
             f"bound {b:.4f} ms ({by}), share of bound {b / ms:.3f}")
         if dev is not None:
             self.device_ms = (self.device_ms or 0.0) + count * dev[0]
-            self.library_device_ms = (self.library_device_ms or 0.0) + count * dev[1]
             entry.update(device_ms=dev[0], library_device_ms=dev[1])
-            log(f"      device time per call (torch.profiler kernel events): kernel {dev[0]:.4f} ms, "
-                f"library {dev[1]:.4f} ms; per frame x{count}: {count * dev[0]:.4f} / {count * dev[1]:.4f} ms")
+            if dev[1] is None:
+                log(f"      device time per call (torch.profiler kernel events): kernel {dev[0]:.4f} ms; "
+                    f"per frame x{count}: {count * dev[0]:.4f} ms")
+            else:
+                self.library_device_ms = (self.library_device_ms or 0.0) + count * dev[1]
+                log(f"      device time per call (torch.profiler kernel events): kernel {dev[0]:.4f} ms, "
+                    f"library {dev[1]:.4f} ms; per frame x{count}: {count * dev[0]:.4f} / "
+                    f"{count * dev[1]:.4f} ms")
         self.shapes.append(entry)
 
 
@@ -416,22 +475,36 @@ def check_kernels(g) -> dict:
               time_ms(lambda: ln_mlp_residual_plain(*args)), bnd, by)
 
     r = rows["window_attention"] = Row("window_attention")
-    log(f"window_attention (hd {HD}, f32 scores, bf16 P)")
-    for (hp, ws, nh, pool), cnt in WIN_SHAPES:
-        qkv = rn(TRAIN_T, hp, hp, 3 * nh * HD)
-        r.check(compare(f"B{TRAIN_T} {hp}^2 ws{ws} nh{nh} pool={pool} training",
-                        window_attention(qkv, ws, nh, pool), window_attention_plain(qkv, ws, nh, pool),
-                        attention=True))
-        qkv = rn(1, hp, hp, 3 * nh * HD)
-        wso = ws // 2 if pool else ws
-        err = compare(f"{hp}^2 ws{ws} nh{nh} pool={pool}", window_attention(qkv, ws, nh, pool),
-                      window_attention_plain(qkv, ws, nh, pool), attention=True)
-        nwin = (hp // ws) ** 2
-        out_elems = nwin * wso * wso * nh * HD
-        flops = 4 * nwin * nh * (wso * wso) * (ws * ws) * HD
-        bnd, by = bound_ms(2 * qkv.numel() + 2 * out_elems, flops, BF16_FLOPS)
-        r.add([hp, hp, ws, nh, pool], cnt, err, time_ms(lambda: window_attention(qkv, ws, nh, pool)),
-              time_ms(lambda: window_attention_plain(qkv, ws, nh, pool)), bnd, by)
+    for hd, shapes, path in ((HD, WIN_SHAPES, "sam2.1_hiera_t512"), (HD_VIT, WIN64_SHAPES, "EfficientMedSAM-S / -Ti")):
+        log(f"window_attention (hd {hd}, f32 scores, bf16 P): {path}")
+        for (hp, ws, nh, pool), cnt in shapes:
+            if hd == HD:  # the training path runs the t512 trunk
+                qkv = rn(TRAIN_T, hp, hp, 3 * nh * hd)
+                r.check(compare(f"B{TRAIN_T} {hp}^2 ws{ws} nh{nh} pool={pool} training",
+                                window_attention(qkv, ws, nh, pool), window_attention_plain(qkv, ws, nh, pool),
+                                attention=True))
+            qkv = rn(1, hp, hp, 3 * nh * hd)
+            wso = ws // 2 if pool else ws
+            want = window_attention_plain(qkv, ws, nh, pool)
+            err = compare(f"{hp}^2 ws{ws} nh{nh} hd{hd} pool={pool}", window_attention(qkv, ws, nh, pool), want,
+                          attention=True)
+            if hd == HD_VIT and nh == 6:
+                # the check must reject an output whose heads 0 and 1 trade places
+                # (a wrong head offset in the gather or the scatter)
+                swapped = want.clone().reshape(*want.shape[:3], nh, hd)
+                swapped[..., [0, 1], :] = swapped[..., [1, 0], :]
+                ok, msg, _ = agreement(swapped.reshape(want.shape), want, attention=True)
+                log(f"  self-test, heads 0 and 1 swapped: {msg} {'passed (FAIL)' if ok else 'rejected'}")
+                if ok:
+                    raise AssertionError("the window-attention check does not see two swapped heads")
+            nwin = (hp // ws) ** 2
+            out_elems = nwin * wso * wso * nh * hd
+            flops = 4 * nwin * nh * (wso * wso) * (ws * ws) * hd
+            bnd, by = bound_ms(2 * qkv.numel() + 2 * out_elems, flops, BF16_FLOPS)
+            # device time at the ws-14 blocks of each head dim, the path's largest calls
+            dev_ms = (device_ms(lambda: window_attention(qkv, ws, nh, pool)), None) if ws == 14 and not pool else None
+            r.add([hp, hp, ws, nh, hd, pool], cnt, err, time_ms(lambda: window_attention(qkv, ws, nh, pool)),
+                  time_ms(lambda: window_attention_plain(qkv, ws, nh, pool)), bnd, by, dev=dev_ms)
 
     r = rows["flash_attention"] = Row("flash_attention")
     log("flash_attention (D 256, key mask)")
@@ -441,7 +514,7 @@ def check_kernels(g) -> dict:
     mask = torch.ones(1, lk_cross, dtype=torch.bool, device=dev)
     mask[:, 5 * 1024: 7 * 1024] = False
     mask[:, 7 * 1024 + 24:] = False
-    for (lq, lk, m), cnt in (((1024, 1024, None), 4), ((1024, lk_cross, mask), 4)):
+    for (lq, lk, m), cnt in (((1024, 1024, None), FLASH_PER_FRAME), ((1024, lk_cross, mask), FLASH_PER_FRAME)):
         q, k, v = rn(1, 1, lq, 256), rn(1, 1, lk, 256), rn(1, 1, lk, 256)
         want = flash_attention_plain(q, k, v, m)
         err = compare(f"q{lq} k{lk} mask={m is not None}", flash_attention(q, k, v, m), want,
@@ -481,9 +554,10 @@ def check_kernels(g) -> dict:
     args = (x, w[:192], b[:192], rn(768, 192, scale=192**-0.5), rn(768, scale=0.1, dtype=torch.float32),
             rn(192, 768, scale=768**-0.5), rn(192, scale=0.1, dtype=torch.float32))
     compare("ln_mlp_residual (1000,192,768)", ln_mlp_residual(*args), ln_mlp_residual_plain(*args))
-    for shape, ws, nh, pool in (((2, 28, 42), 14, 2, True), ((2, 14, 21), 7, 3, False)):
-        qkv = rn(*shape, 3 * nh * HD)
-        compare(f"window_attention B{shape[0]} {shape[1]}x{shape[2]} ws{ws} nh{nh} pool={pool}",
+    for shape, ws, nh, pool, hd in (((2, 28, 42), 14, 2, True, HD), ((2, 14, 21), 7, 3, False, HD),
+                                    ((2, 42, 42), 14, 6, False, HD_VIT), ((2, 28, 28), 14, 2, True, HD_VIT)):
+        qkv = rn(*shape, 3 * nh * hd)
+        compare(f"window_attention B{shape[0]} {shape[1]}x{shape[2]} ws{ws} nh{nh} hd{hd} pool={pool}",
                 window_attention(qkv, ws, nh, pool), window_attention_plain(qkv, ws, nh, pool),
                 attention=True)
     q, k, v = rn(2, 2, 1000, 256), rn(2, 2, 1100, 256), rn(2, 2, 1100, 256)
@@ -550,13 +624,13 @@ def cxblock_args(rn, b, h, w=None, c=CX_C):
             1.0 + rn(c, scale=0.1, dtype=f32))
 
 
-def qkv_args(rn, b, hp, nh, cin, real):
+def qkv_args(rn, b, hp, nh, cin, real, hd=HD):
     """Post-norm1 tokens zero-padded from real x real to hp x hp, the qkv weight and its f32 bias."""
     import torch
 
     y = torch.zeros(b, hp, hp, cin, dtype=torch.bfloat16, device="cuda")
     y[:, :real, :real] = rn(b, real, real, cin)
-    return y, rn(3 * nh * HD, cin, scale=cin**-0.5), rn(3 * nh * HD, scale=0.5, dtype=torch.float32)
+    return y, rn(3 * nh * hd, cin, scale=cin**-0.5), rn(3 * nh * hd, scale=0.5, dtype=torch.float32)
 
 
 def check_fused_kernels(g, rows) -> None:
@@ -598,7 +672,8 @@ def check_fused_kernels(g, rows) -> None:
     # products on the bf16 tensor cores, the depthwise taps as f32 FMAs
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, (4 * hw * c * f / BF16_FLOPS + 2 * hw * c * 49 / F32_FLOPS) * 1e3
     bnd, by = (tb, "bytes") if tb >= tf else (tf, "operations")
-    r.add([1, CX_SIDE, CX_SIDE, c], PER_MEMORY_ENCODING["cxblock"], err, time_ms(lambda: cxblock(*args)),
+    # one memory encoding of each model: both run the same memory encoder
+    r.add([1, CX_SIDE, CX_SIDE, c], 2 * PER_MEMORY_ENCODING["cxblock"], err, time_ms(lambda: cxblock(*args)),
           time_ms(lambda: cxblock_plain(*args)), bnd, by)
     log(f"  {(CX_SIDE // 8) ** 2} blocks of 8x8 tokens at B 1 on "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs; each block reads W1 and W2 "
@@ -607,16 +682,20 @@ def check_fused_kernels(g, rows) -> None:
         "GELU, layer scale and residual)")
 
     r = rows["qkv_window_attention"] = Row("qkv_window_attention")
-    log(f"qkv_window_attention (in-kernel projection, f32 bias; hd {HD}, f32 scores, bf16 P)")
-    for (hp, ws, nh, pool, cin, real), cnt in QKV_SHAPES:
-        geo = f"{hp}^2 ws{ws} nh{nh} pool={pool} Cin{cin}"
-        a = qkv_args(rn, TRAIN_T, hp, nh, cin, real)
-        r.check(compare(f"B{TRAIN_T} {geo} training", qkv_window_attention(*a, ws, nh, pool),
-                        qkv_window_attention_plain(*a, ws, nh, pool), attention=True))
-        a = qkv_args(rn, 1, hp, nh, cin, real)
+    shapes = [(HD, *s) for s in QKV_SHAPES] + [(HD_VIT, *s) for s in QKV64_SHAPES]
+    for i, (hd, (hp, ws, nh, pool, cin, real), cnt) in enumerate(shapes):
+        if i == 0 or hd != shapes[i - 1][0]:
+            log(f"qkv_window_attention (in-kernel projection, f32 bias; hd {hd}, f32 scores, bf16 P): "
+                f"{'sam2.1_hiera_t512' if hd == HD else 'EfficientMedSAM-S / -Ti'}")
+        geo = f"{hp}^2 ws{ws} nh{nh} hd{hd} pool={pool} Cin{cin}"
+        if hd == HD:  # the training path runs the t512 trunk
+            a = qkv_args(rn, TRAIN_T, hp, nh, cin, real)
+            r.check(compare(f"B{TRAIN_T} {geo} training", qkv_window_attention(*a, ws, nh, pool),
+                            qkv_window_attention_plain(*a, ws, nh, pool), attention=True))
+        a = qkv_args(rn, 1, hp, nh, cin, real, hd)
         want = qkv_window_attention_plain(*a, ws, nh, pool)
         err = compare(geo, qkv_window_attention(*a, ws, nh, pool), want, attention=True)
-        if (hp, ws, nh, pool) == (42, 14, 4, False):
+        if (hp, ws, nh, pool, hd) == (42, 14, 4, False, HD):
             # the check must reject a kernel whose pad tokens' q, k, v are 0, not the bias
             y, w, b = a
             qkv = F.linear(y.float(), w.float(), b).to(y.dtype)
@@ -628,13 +707,13 @@ def check_fused_kernels(g, rows) -> None:
                 raise AssertionError("the qkv window-attention check does not see zero pad tokens")
         nwin = (hp // ws) ** 2
         wso = ws // 2 if pool else ws
-        out_elems = nwin * wso * wso * nh * HD
+        out_elems = nwin * wso * wso * nh * hd
         # the projection of the real tokens (a zero pad token's q, k, v is the
         # bias) and attention over every window
-        flops = 2 * real * real * cin * 3 * nh * HD + 4 * nwin * nh * (wso * wso) * (ws * ws) * HD
+        flops = 2 * real * real * cin * 3 * nh * hd + 4 * nwin * nh * (wso * wso) * (ws * ws) * hd
         bnd, by = bound_ms(2 * a[0].numel() + 2 * a[1].numel() + 4 * a[2].numel() + 2 * out_elems, flops,
                            BF16_FLOPS)
-        r.add([hp, hp, ws, nh, pool, cin], cnt, err, time_ms(lambda: qkv_window_attention(*a, ws, nh, pool)),
+        r.add([hp, hp, ws, nh, hd, pool, cin], cnt, err, time_ms(lambda: qkv_window_attention(*a, ws, nh, pool)),
               time_ms(lambda: qkv_window_attention_plain(*a, ws, nh, pool)), bnd, by)
         log(f"      {nwin * nh} blocks; the window tokens are read {3 * nh} times: "
             f"{3 * nh * 2 * a[0].numel() / 1e6:.2f} MB from L2 against the map's {2 * a[0].numel() / 1e6:.2f} MB")
@@ -643,10 +722,12 @@ def check_fused_kernels(g, rows) -> None:
     log("fused kernels at edge shapes (bf16, untimed)")
     hold_cxblock("cxblock B2 16^2", cxblock_args(rn, 2, 16))
     hold_cxblock("cxblock 12x20 (ragged 8x8 tiles)", cxblock_args(rn, 1, 12, 20))
-    for (bsz, hp, wp), ws, nh, pool, cin in (((2, 28, 42), 14, 2, True, 192), ((2, 14, 21), 7, 3, False, 96)):
-        y, w, b = qkv_args(rn, bsz, max(hp, wp), nh, cin, max(hp, wp))
+    for (bsz, hp, wp), ws, nh, pool, cin, hd in (((2, 28, 42), 14, 2, True, 192, HD), ((2, 14, 21), 7, 3, False, 96, HD),
+                                                ((2, 42, 42), 14, 6, False, 384, HD_VIT),
+                                                ((2, 28, 28), 14, 2, True, 192, HD_VIT)):
+        y, w, b = qkv_args(rn, bsz, max(hp, wp), nh, cin, max(hp, wp), hd)
         y = y[:, :hp, :wp].contiguous()
-        compare(f"qkv_window_attention B{bsz} {hp}x{wp} ws{ws} nh{nh} pool={pool} Cin{cin}",
+        compare(f"qkv_window_attention B{bsz} {hp}x{wp} ws{ws} nh{nh} hd{hd} pool={pool} Cin{cin}",
                 qkv_window_attention(y, w, b, ws, nh, pool), qkv_window_attention_plain(y, w, b, ws, nh, pool),
                 attention=True)
 
@@ -1426,11 +1507,79 @@ def hold_against_host(masks, ref) -> None:
             raise AssertionError(f"frame {f}: card and host disagree")
 
 
+def run_propagation(name, builder, per_encoded, per_encoded_fused, label, fused_phase, card, profile_dir,
+                    iou_margin=None):
+    """Propagation of the preset ``name`` at full width in bf16 through
+    ``builder`` (the preset's predictor entry point) with seeded weights (the
+    object-score head's output bias at +10; ``iou_margin`` = (output, margin)
+    added to one IoU-head output bias) and the seeded video: exact launch
+    counts, the first CHECK_FRAMES frames held against a host f32 run; then
+    the same with both opt-in switches set, held against the same host run.
+    Returns the launches of one run of each configuration."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.core.build import build_sam2
+
+    model = build_sam2(name, seed=SEED)
+    with torch.no_grad():
+        model.sam_mask_decoder.obj_score_head.layers_2.bias.fill_(10.0)
+        if iou_margin is not None:
+            model.sam_mask_decoder.iou_head.layers_2.bias[iou_margin[0]] += iou_margin[1]
+    host_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    predictor = builder(name, state_dict=host_sd, fill_hole_area=8)  # the card, bf16
+    video, click, _ = make_video(FRAMES, model.cfg.image_size, SEED)
+
+    n = FRAMES
+    expected = {k: 0 for k in counters()}
+    expected.update({k: v * n for k, v in per_encoded.items()})
+    expected.update({k: v * (n - 1) for k, v in PER_TRACKED_FRAME.items()})
+    masks, wall, t_prompt, t_prop = timed_runs(predictor, video, click, expected)
+    fg = [float((masks[f] > 0).mean()) for f in range(n)]
+    log(f"  foreground fraction per frame: {[round(x, 4) for x in fg]}")
+    log(f"  {n} frames in {wall:.3f} s: {n / wall:.2f} frames/s, {1e3 * wall / n:.2f} ms/frame "
+        f"(init_state + prompt + propagation, host clock) on {card}")
+    log(f"  init_state + prompt {1e3 * t_prompt:.2f} ms; propagation {1e3 * t_prop:.2f} ms = "
+        f"{1e3 * t_prop / (n - 1):.2f} ms per tracked frame ({(n - 1) / t_prop:.2f} frames/s)")
+    if profile_dir:
+        profile_run(lambda: run_main_path(predictor, video, click), label, profile_dir, wall)
+
+    k = CHECK_FRAMES
+    log(f"  host CPU reference (plain versions, f32) on the first {k} frames")
+    cpu_pred = builder(name, state_dict=host_sd, fill_hole_area=8, device="cpu", dtype=torch.float32)
+    t0 = time.perf_counter()
+    ref, _, _ = run_main_path(cpu_pred, video, click, stop_after=k)
+    log(f"  host run {time.perf_counter() - t0:.1f} s")
+    hold_against_host(masks, ref)
+    del cpu_pred
+
+    # the fused configuration: the same model, weights and video with both
+    # opt-in kernels switched on. Memory encodings per run: the prompted frame
+    # once in propagate_in_video_preflight, then every tracked frame in
+    # track_step (models/sam2.py), each through encode_memory's memory_encoder
+    # call and its 2 CXBlocks.
+    log(f"{fused_phase} fused configuration, {name}: " + " and ".join(f"{k}=1" for k in FUSED_SWITCHES))
+    n_mem = 1 + (n - 1)
+    fused_expected = {k: 0 for k in counters()}
+    fused_expected.update({k: v * n for k, v in per_encoded_fused.items()})
+    fused_expected.update({k: v * (n - 1) for k, v in PER_TRACKED_FRAME.items()})
+    fused_expected.update({k: v * n_mem for k, v in PER_MEMORY_ENCODING.items()})
+    log(f"  {n} encoded frames, {n - 1} tracked, {n_mem} memory encodings per run")
+    with fused_switches():
+        fmasks, fwall, f_prompt, f_prop = timed_runs(predictor, video, click, fused_expected)
+        if profile_dir:
+            profile_run(lambda: run_main_path(predictor, video, click), f"{label}_fused", profile_dir, fwall)
+    hold_against_host(fmasks, ref)
+    log(f"  ms per tracked frame (host clock, median of {REPEATS}; for information), {name}: switches off "
+        f"{1e3 * t_prop / (n - 1):.2f}, on {1e3 * f_prop / (n - 1):.2f}; init_state + prompt off "
+        f"{1e3 * t_prompt:.2f}, on {1e3 * f_prompt:.2f}; on {card}")
+    return {"default": expected, "fused": fused_expected}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile a main-path run with the switches off and one with them on, "
-                         "and one training step; Chrome traces into DIR")
+                    help="also profile a propagation run of each model with the switches off and one "
+                         "with them on, and one training step; Chrome traces into DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -1439,8 +1588,10 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     try:
-        from us_video_medsam2_tpu_torch.core.build import build_sam2
-        from us_video_medsam2_tpu_torch.inference.video_predictor import SAM2VideoPredictor
+        from us_video_medsam2_tpu_torch.inference.video_predictor import (
+            build_efficienttam_video_predictor,
+            build_sam2_video_predictor,
+        )
         from us_video_medsam2_tpu_torch.kernels import _lib
     except ImportError as e:
         print(f"chip_smoke: the port's package is not importable here ({e})", file=sys.stderr)
@@ -1449,12 +1600,12 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     were_set = [k for k in FUSED_SWITCHES if os.environ.pop(k, None) is not None]
     if were_set:
-        log(f"chip_smoke: {were_set} unset for the default phases; phase 5 sets them itself")
+        log(f"chip_smoke: {were_set} unset for the default phases; the fused phases set them themselves")
 
     # 1. the card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/7] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[1/8] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 2. the build
     t0 = time.perf_counter()
@@ -1462,7 +1613,7 @@ def main(argv=None) -> int:
     lib = _lib.build(log=msgs.append)
     _lib.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/7] build: {lib.name} in {build_s:.2f} s (set-up)")
+    log(f"[2/8] build: {lib.name} in {build_s:.2f} s (set-up)")
     if msgs:
         (lib.parent / "nvcc.log").write_text("\n".join(msgs))
         ptxas_report(msgs)
@@ -1470,7 +1621,7 @@ def main(argv=None) -> int:
         log("  (library built before this run: no compiler report)")
 
     # 3. each kernel against its plain version
-    log("[3/7] kernels vs plain versions at the main-path shapes (bf16)")
+    log("[3/8] kernels vs plain versions at the main-path shapes (bf16)")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(g)
     check_kernel_grads(g)
@@ -1478,72 +1629,34 @@ def main(argv=None) -> int:
     check_fused_kernels(g, rows)
     check_window_attention_v1(g, rows)
 
-    # 4. the main path
-    log("[4/7] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
-    model = build_sam2("sam2.1_hiera_t512", seed=SEED)
-    with torch.no_grad():
-        model.sam_mask_decoder.obj_score_head.layers_2.bias.fill_(10.0)
-    host_sd = {k: v.clone() for k, v in model.state_dict().items()}
-    model = model.to("cuda").set_compute_dtype(torch.bfloat16)
-    predictor = SAM2VideoPredictor(model, fill_hole_area=8)
-    video, click, _ = make_video(FRAMES, model.cfg.image_size, SEED)
+    # 4-5. the main path: sam2.1_hiera_t512, switches off, then on
+    log("[4/8] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
+    t512 = run_propagation("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME,
+                           PER_ENCODED_FRAME_FUSED, "main_path", "[5/8]", card, args.profile)
 
-    n = FRAMES
-    expected = {k: 0 for k in counters()}
-    expected.update({k: v * n for k, v in PER_ENCODED_FRAME.items()})
-    expected.update({k: v * (n - 1) for k, v in PER_TRACKED_FRAME.items()})
-    masks, wall, t_prompt, t_prop = timed_runs(predictor, video, click, expected)
-    launches = expected
-    fg = [float((masks[f] > 0).mean()) for f in range(n)]
-    log(f"  foreground fraction per frame: {[round(x, 4) for x in fg]}")
-    log(f"  {n} frames in {wall:.3f} s: {n / wall:.2f} frames/s, {1e3 * wall / n:.2f} ms/frame "
-        f"(init_state + prompt + propagation, host clock) on {card}")
-    log(f"  init_state + prompt {1e3 * t_prompt:.2f} ms; propagation {1e3 * t_prop:.2f} ms = "
-        f"{1e3 * t_prop / (n - 1):.2f} ms per tracked frame ({(n - 1) / t_prop:.2f} frames/s)")
-    if args.profile:
-        profile_run(lambda: run_main_path(predictor, video, click), "main_path", args.profile, wall)
+    # 6. EfficientMedSAM-S: the same, through the EfficientTAM entry point
+    log("[6/8] EfficientMedSAM-S: efficientmedsam_s_512, bf16, seeded weights and video")
+    eff = run_propagation("efficientmedsam_s_512", build_efficienttam_video_predictor, PER_ENCODED_FRAME_VIT,
+                          PER_ENCODED_FRAME_VIT_FUSED, "efficienttam_s", "[6/8]", card, args.profile,
+                          VIT_IOU_MARGIN)
+    launches = {k: t512["default"][k] + eff["default"][k] for k in t512["default"]}
+    for k in ("cxblock", "qkv_window_attention"):  # the kernels of the fused configuration
+        launches[k] = t512["fused"][k] + eff["fused"][k]
+    log(f"  launches by path (per {FRAMES}-frame run): " + json.dumps(
+        {f"{preset} {cfg}": {k: v for k, v in run[cfg].items() if v}
+         for preset, run in (("sam2.1_hiera_t512", t512), ("efficientmedsam_s_512", eff))
+         for cfg in ("default", "fused")}))
 
-    k = CHECK_FRAMES
-    log(f"  host CPU reference (plain versions, f32) on the first {k} frames")
-    cpu_model = build_sam2("sam2.1_hiera_t512", state_dict=host_sd)
-    cpu_pred = SAM2VideoPredictor(cpu_model, fill_hole_area=8, device="cpu")
-    t0 = time.perf_counter()
-    ref, _, _ = run_main_path(cpu_pred, video, click, stop_after=k)
-    log(f"  host run {time.perf_counter() - t0:.1f} s")
-    hold_against_host(masks, ref)
-
-    # 5. the fused configuration: the same model, weights and video with both
-    # opt-in kernels switched on. Memory encodings per run: the prompted frame
-    # once in propagate_in_video_preflight, then every tracked frame in
-    # track_step (models/sam2.py:293-296), each through encode_memory's
-    # memory_encoder call (models/sam2.py:262) and its 2 CXBlocks.
-    log("[5/7] fused configuration: " + " and ".join(f"{k}=1" for k in FUSED_SWITCHES))
-    n_mem = 1 + (n - 1)
-    fused_expected = {k: 0 for k in counters()}
-    fused_expected.update({k: v * n for k, v in PER_ENCODED_FRAME_FUSED.items()})
-    fused_expected.update({k: v * (n - 1) for k, v in PER_TRACKED_FRAME.items()})
-    fused_expected.update({k: v * n_mem for k, v in PER_MEMORY_ENCODING.items()})
-    log(f"  {n} encoded frames, {n - 1} tracked, {n_mem} memory encodings per run")
-    with fused_switches():
-        fmasks, fwall, f_prompt, f_prop = timed_runs(predictor, video, click, fused_expected)
-        if args.profile:
-            profile_run(lambda: run_main_path(predictor, video, click), "main_path_fused", args.profile, fwall)
-    hold_against_host(fmasks, ref)
-    log(f"  ms per tracked frame (host clock, median of {REPEATS}; for information): switches off "
-        f"{1e3 * t_prop / (n - 1):.2f}, on {1e3 * f_prop / (n - 1):.2f}; init_state + prompt off "
-        f"{1e3 * t_prompt:.2f}, on {1e3 * f_prompt:.2f}; on {card}")
-    launches = {**launches, **{k: fused_expected[k] for k in ("cxblock", "qkv_window_attention")}}
-
-    # 6. the training path
-    log(f"[6/7] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
+    # 7. the training path
+    log(f"[7/8] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
         f"T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}, seeded weights and batch")
     train_launches = run_training(args.profile)
     log(f"  launches over the {TRAIN_STEPS} timed steps: {train_launches}")
 
-    # 7. the kernels line (launches of the dropout kernels from the training
-    # steps, of cxblock and qkv_window_attention from a fused propagation run,
-    # of the others from a default propagation run, where the unwired
-    # window_attention_v1 launches none), the card line, the device line
+    # 8. the kernels line (launches of the dropout kernels from the training
+    # steps, of cxblock and qkv_window_attention from the fused propagation
+    # runs of both models, of the others from their default runs, where the
+    # unwired window_attention_v1 launches none), the card line, the device line
     kernels = []
     for kname, r in rows.items():
         kernels.append({
@@ -1554,7 +1667,7 @@ def main(argv=None) -> int:
             "library_ms": r.library_ms,
         })
     detail = {r.name: r.shapes for r in rows.values()}
-    log("[7/7] per-shape detail " + json.dumps(detail))
+    log("[8/8] per-shape detail " + json.dumps(detail))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -30,13 +30,12 @@ def port_config(jcfg) -> port_config_mod.SAM2Config:
         kw = {}
         for f in dataclasses.fields(cls):
             v = getattr(obj, f.name)
-            if dataclasses.is_dataclass(v):
-                v = conv(type(getattr(cls(), f.name)), v)
+            if dataclasses.is_dataclass(v):  # the port's dataclass of the same name
+                v = conv(getattr(port_config_mod, type(v).__name__), v)
             kw[f.name] = v
         return cls(**kw)
 
-    assert jcfg.vitdet is None and jcfg.temporal_fusion.variant == "none"
-    assert jcfg.memory_attention.efficient_pool_size == 0
+    assert jcfg.temporal_fusion.variant == "none"
     return conv(port_config_mod.SAM2Config, jcfg)
 
 

@@ -1,15 +1,18 @@
 """Model configuration: frozen dataclasses and named presets.
 
-A copy of the JAX package's ``core/config.py`` limited to what the Hiera video
-path uses (the ViT trunk, temporal fusion and YAML loading are not ported).
-Defaults reproduce ``sam2.1_hiera_t512`` (reference
-sam2/configs/sam2.1_hiera_t512.yaml).
+A copy of the JAX package's ``core/config.py`` limited to what the video
+paths of the two trunks use (temporal fusion and YAML loading are not
+ported). Defaults reproduce ``sam2.1_hiera_t512`` (reference
+sam2/configs/sam2.1_hiera_t512.yaml); the EfficientTAM presets swap the
+Hiera trunk and FPN neck for the plain ViT (ViTDet) trunk and its one-level
+neck (reference sam2/configs/efficientmedsam_s_512_FLARE_RECIST.yaml).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -34,6 +37,23 @@ class HieraConfig:
 
 
 @dataclass(frozen=True)
+class ViTDetConfig:
+    """Plain ViT trunk used by the EfficientTAM family (reference backbones/vitdet.py)."""
+
+    img_size: int = 512
+    patch_size: int = 16
+    embed_dim: int = 384
+    depth: int = 12
+    num_heads: int = 6
+    mlp_ratio: float = 4.0
+    window_size: int = 14
+    window_block_indexes: Tuple[int, ...] = (0, 1, 3, 4, 6, 7, 9, 10)
+    use_rel_pos: bool = False
+    pretrain_img_size: int = 224
+    pretrain_use_cls_token: bool = True
+
+
+@dataclass(frozen=True)
 class FpnNeckConfig:
     """FPN neck (reference backbones/image_encoder.py:47-137)."""
 
@@ -43,6 +63,7 @@ class FpnNeckConfig:
     fpn_interp_model: str = "nearest"
     fuse_type: str = "sum"
     pos_temperature: float = 10000.0
+    neck_norm: str | None = None  # 'LN' for the EfficientMedSAM ViTDetNeck
 
 
 @dataclass(frozen=True)
@@ -62,6 +83,11 @@ class MemoryAttentionConfig:
     rope_theta: float = 10000.0
     rope_feat_sizes: Tuple[int, int] = (32, 32)
     kv_in_dim: int = 64
+    # EfficientTAM landmark pooling of the spatial memory K/V (0 = off;
+    # efficient_track_anything/modeling/sam/transformer.py:378-415); variant 1
+    # adds the area compensation as a logit bias, variant 2 to the pooled keys
+    efficient_pool_size: int = 0
+    efficient_pool_variant: int = 1
 
 
 @dataclass(frozen=True)
@@ -89,7 +115,9 @@ class SAM2Config:
 
     image_size: int = 512
     backbone_stride: int = 16
-    hiera: HieraConfig = field(default_factory=HieraConfig)
+    # trunk selection: exactly one of hiera / vitdet
+    hiera: Optional[HieraConfig] = field(default_factory=HieraConfig)
+    vitdet: Optional[ViTDetConfig] = None
     neck: FpnNeckConfig = field(default_factory=FpnNeckConfig)
     neck_scalp: int = 1
     memory_attention: MemoryAttentionConfig = field(default_factory=MemoryAttentionConfig)
@@ -149,6 +177,34 @@ def sam21_hiera_tiny_512() -> SAM2Config:
     return SAM2Config()
 
 
+def efficienttam_s_512() -> SAM2Config:
+    """EfficientMedSAM-S (reference configs/efficientmedsam_s_512_FLARE_RECIST.yaml:79-137):
+    ViT-S trunk (embed 384, 6 heads of 64), the LN neck, plain RoPE memory attention."""
+    return SAM2Config(
+        hiera=None,
+        vitdet=ViTDetConfig(),
+        neck=FpnNeckConfig(backbone_channel_list=(384,), fpn_top_down_levels=(), neck_norm="LN"),
+        neck_scalp=0,
+        use_high_res_features_in_sam=False,
+        add_tpos_enc_to_obj_ptrs=False,
+        proj_tpos_enc_in_obj_ptrs=False,
+        use_signed_tpos_enc_to_obj_ptrs=False,
+        no_obj_embed_spatial=False,
+    )
+
+
+def efficienttam_ti_512() -> SAM2Config:
+    """EfficientMedSAM / EfficientTAM-Ti: the -S preset at embed 192, 3 heads
+    (reference efficientmedsam_ti_512_FLARE_RECIST.yaml:79-105,
+    efficient_track_anything/configs/efficienttam_ti_512x512.yaml:11-30)."""
+    cfg = efficienttam_s_512()
+    return dataclasses.replace(
+        cfg,
+        vitdet=dataclasses.replace(cfg.vitdet, embed_dim=192, num_heads=3),
+        neck=dataclasses.replace(cfg.neck, backbone_channel_list=(192,)),
+    )
+
+
 def tiny64_test() -> SAM2Config:
     """Structurally complete micro config for CPU smoke runs."""
     return SAM2Config(
@@ -174,6 +230,9 @@ def tiny64_test() -> SAM2Config:
 
 PRESETS = {
     "sam2.1_hiera_t512": sam21_hiera_tiny_512,
+    "efficientmedsam_s_512": efficienttam_s_512,
+    "efficientmedsam_ti_512": efficienttam_ti_512,
+    "efficienttam_ti_512": efficienttam_ti_512,
     "tiny64_test": tiny64_test,
 }
 

@@ -299,6 +299,8 @@ extern "C" int usm_qkv_window_attention_bf16(const void* y, const void* w, const
   if (ws <= 0 || ws > MAX_WS || hp % ws || wp % ws || (q_pool && ws % 2) || cin <= 0 || cin % KC)
     return cudaErrorInvalidValue;
   if (b <= 0 || hp <= 0 || wp <= 0) return cudaSuccess;
-  if (hd != 96) return cudaErrorInvalidValue;  // Hiera-tiny's head width at every stage
-  return launch<96>(y, w, bias, out, b, hp, wp, cin, ws, nh, q_pool, scale, s);
+  // Hiera-tiny's head width at every stage, and the ViTDet trunks' (384/6, 192/3)
+  if (hd == 96) return launch<96>(y, w, bias, out, b, hp, wp, cin, ws, nh, q_pool, scale, s);
+  if (hd == 64) return launch<64>(y, w, bias, out, b, hp, wp, cin, ws, nh, q_pool, scale, s);
+  return cudaErrorInvalidValue;
 }

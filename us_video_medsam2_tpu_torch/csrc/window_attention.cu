@@ -214,6 +214,8 @@ extern "C" int usm_window_attention_bf16(const void* qkv, void* out, int b, int 
   if (ws <= 0 || ws > MAX_WS || hp % ws || wp % ws || (q_pool && ws % 2))
     return cudaErrorInvalidValue;
   if (b <= 0 || hp <= 0 || wp <= 0) return cudaSuccess;
-  if (hd != 96) return cudaErrorInvalidValue;  // Hiera-tiny's head width at every stage
-  return launch<96>(qkv, out, b, hp, wp, ws, nh, q_pool, scale, s);
+  // Hiera-tiny's head width at every stage, and the ViTDet trunks' (384/6, 192/3)
+  if (hd == 96) return launch<96>(qkv, out, b, hp, wp, ws, nh, q_pool, scale, s);
+  if (hd == 64) return launch<64>(qkv, out, b, hp, wp, ws, nh, q_pool, scale, s);
+  return cudaErrorInvalidValue;
 }

@@ -236,3 +236,11 @@ def build_sam2_video_predictor(config="sam2.1_hiera_t512", state_dict=None, devi
     dev = resolve_device(device)
     model = build_sam2(config, state_dict, seed=seed, **overrides)
     return SAM2VideoPredictor(model.to(dev).set_compute_dtype(dtype), fill_hole_area, device=dev)
+
+
+def build_efficienttam_video_predictor(config="efficientmedsam_s_512", state_dict=None, device="cuda",
+                                       **kwargs):
+    """The EfficientTAM family's predictor (reference
+    efficient_track_anything/build_efficienttam.py): ``build_sam2_video_predictor``
+    with an EfficientTAM preset."""
+    return build_sam2_video_predictor(config, state_dict, device, **kwargs)

@@ -18,8 +18,9 @@ and the head's weight rows through shared memory in 96-wide chunks of Cin,
 projects q, k and v on bf16 tensor cores (WMMA, f32 accumulation in
 registers), pools q in shared memory, and runs ``window_attention``'s S,
 softmax and P·V on the result. Each window's tokens are read once per head
-and per q/k/v (3·nh times, from L2). hd is 96 only, as for
-``window_attention``.
+and per q/k/v (3·nh times, from L2). hd is 64 or 96, as for
+``window_attention``; Cin a multiple of 96 (the ViTDet trunks' 384 and 192
+are).
 """
 
 from __future__ import annotations

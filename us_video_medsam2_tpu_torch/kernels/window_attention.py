@@ -17,7 +17,9 @@ max-pools q while loading it, and lets each warp take 16-row query slabs
 through S, softmax and P·V on bf16 tensor cores (WMMA, f32 accumulation). The
 window partition and unpartition never touch device memory; S never leaves
 shared memory. The TPU's lane padding of hd 96 to 128, its window packing and
-its last-strip row cut are not carried over: hd 96 is six 16-deep k-steps.
+its last-strip row cut are not carried over: hd 96 (Hiera-tiny) is six 16-deep
+k-steps and hd 64 (the ViTDet trunks' ws-14 blocks) four, each its own
+instantiation of the kernel; any other head dim raises on the card.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from us_video_medsam2_tpu_torch.kernels import _lib
 
-SUPPORTED_HD = (96,)
+SUPPORTED_HD = (64, 96)
 MAX_WS = 14
 
 

@@ -4,8 +4,10 @@ memory_encoder.py:17-181), batch-first, NHWC.
 Counterpart of the JAX package's ``models/memory.py``. Memory keys are the
 fixed-shape concatenation [spatial memory-slot tokens | object-pointer
 tokens]; invalid slots are excluded by a boolean key mask. Pointer tokens are
-not rotated by RoPE. CXBlock runs its plain composition (the JAX default), or
-the whole-block kernel (``kernels/cxblock.py``) when
+not rotated by RoPE. With ``efficient_pool_size`` > 1 the cross-attention
+pools the spatial memory keys and values into landmarks (EfficientTAM,
+``transformer.landmark_attention``). CXBlock runs its plain composition (the
+JAX default), or the whole-block kernel (``kernels/cxblock.py``) when
 ``US_MEDSAM2_ENABLE_FUSED_CXBLOCK`` is set, as the JAX package opts in to its
 TPU kernel (``core/switches.py``). With ``deterministic`` False
 (training) the layers apply attention dropout and their four residual
@@ -44,7 +46,7 @@ class MemoryAttentionLayer(nn.Module):
         self.act = ACTIVATIONS[cfg.activation]
 
     def forward(self, tgt, memory, pos, query_pos, rope_q, rope_k, key_mask=None,
-                deterministic=True, gen=None):
+                deterministic=True, gen=None, n_rope=None):
         cfg = self.cfg
 
         def drop(x):  # residual dropouts, and the one inside the FFN
@@ -57,7 +59,8 @@ class MemoryAttentionLayer(nn.Module):
         tgt = tgt + drop(self.cross_attn_image(
             tgt2 + query_pos if cfg.pos_enc_at_cross_attn_queries else tgt2,
             memory + pos if cfg.pos_enc_at_cross_attn_keys else memory,
-            memory, rope_q, rope_k, key_mask, deterministic, gen,
+            memory, rope_q, rope_k, key_mask, deterministic, gen, n_rope,
+            cfg.efficient_pool_size, cfg.rope_feat_sizes, cfg.efficient_pool_variant,
         ))
         tgt2 = self.linear2(drop(self.act(self.linear1(self.norm3(tgt)))))
         return tgt + drop(tgt2)
@@ -79,11 +82,12 @@ class MemoryAttention(nn.Module):
         cos, sin = compute_axial_rope(cfg.d_model // cfg.num_heads, cfg.rope_feat_sizes[0],
                                       cfg.rope_feat_sizes[1], cfg.rope_theta, curr.device)
         lk = memory.shape[1]
-        rope_k = rope_key_tables(cos, sin, lk - num_obj_ptr_tokens, lk)
+        n_rope = lk - num_obj_ptr_tokens
+        rope_k = rope_key_tables(cos, sin, n_rope, lk)
         out = curr + 0.1 * curr_pos if cfg.pos_enc_at_input else curr
         for i in range(cfg.num_layers):
             out = getattr(self, f"layers_{i}")(out, memory, memory_pos, curr_pos, (cos, sin),
-                                               rope_k, key_mask, deterministic, gen)
+                                               rope_k, key_mask, deterministic, gen, n_rope)
         return self.norm(out)
 
 

@@ -1,4 +1,5 @@
-"""FPN neck and image-encoder wrapper (reference backbones/image_encoder.py:16-137), NHWC."""
+"""FPN neck, the plain-ViT trunks' one-level neck, and the image-encoder wrapper
+(reference backbones/image_encoder.py:16-200), NHWC."""
 
 from __future__ import annotations
 
@@ -6,7 +7,7 @@ import torch
 import torch.nn as nn
 
 from us_video_medsam2_tpu_torch.core.config import FpnNeckConfig
-from us_video_medsam2_tpu_torch.models.layers import NHWCConv
+from us_video_medsam2_tpu_torch.models.layers import LayerNorm, NHWCConv
 from us_video_medsam2_tpu_torch.ops.posenc import sine_pos_embed_2d
 from us_video_medsam2_tpu_torch.ops.resize import resize2d, upsample_nearest_2x
 
@@ -44,6 +45,34 @@ class FpnNeck(nn.Module):
                 prev.shape[1], prev.shape[2], cfg.d_model, cfg.pos_temperature, prev.device
             ).to(prev.dtype)
         return out, pos
+
+
+class ViTDetNeck(nn.Module):
+    """One-level neck of the plain-ViT trunks (reference image_encoder.py:139-200):
+    1x1 conv, 3x3 conv, each followed by a LayerNorm (eps 1e-6) and bias-free
+    when ``neck_norm`` is set (the EfficientMedSAM configs' 'LN')."""
+
+    def __init__(self, cfg: FpnNeckConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, norm = cfg.d_model, cfg.neck_norm is not None
+        self.convs_0_conv_1x1 = NHWCConv(cfg.backbone_channel_list[0], d, 1, bias=not norm)
+        self.convs_0_conv_3x3 = NHWCConv(d, d, 3, padding=1, bias=not norm)
+        if norm:
+            self.convs_0_norm_0 = LayerNorm(d, eps=1e-6)
+            self.convs_0_norm_1 = LayerNorm(d, eps=1e-6)
+
+    def forward(self, xs: list[torch.Tensor]):
+        cfg = self.cfg
+        norm = cfg.neck_norm is not None
+        x = self.convs_0_conv_1x1(xs[0])
+        if norm:
+            x = self.convs_0_norm_0(x)
+        x = self.convs_0_conv_3x3(x)
+        if norm:
+            x = self.convs_0_norm_1(x)
+        pos = sine_pos_embed_2d(x.shape[1], x.shape[2], cfg.d_model, cfg.pos_temperature, x.device).to(x.dtype)
+        return [x], [pos]
 
 
 class ImageEncoder(nn.Module):

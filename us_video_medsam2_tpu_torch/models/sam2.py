@@ -1,7 +1,8 @@
 """SAM2 core model: promptable video segmentation with a streaming memory bank.
 
 Counterpart of the JAX package's ``models/sam2.py`` (reference
-sam2/modeling/sam2_base.py:764-1682) for the Hiera trunk: ``forward_image``,
+sam2/modeling/sam2_base.py:764-1682) with the Hiera trunk and FPN neck, or the
+ViTDet trunk and its one-level neck (EfficientTAM): ``forward_image``,
 ``condition_on_memory``, ``no_mem_features``, ``sam_heads``,
 ``use_mask_as_output``, ``encode_memory`` and ``track_step``, each with the
 training switches of the JAX package (``is_training``, ``deterministic``).
@@ -25,8 +26,9 @@ from us_video_medsam2_tpu_torch.models.memory_bank import (
     select_memories,
     write_memory,
 )
-from us_video_medsam2_tpu_torch.models.neck import FpnNeck, ImageEncoder
+from us_video_medsam2_tpu_torch.models.neck import FpnNeck, ImageEncoder, ViTDetNeck
 from us_video_medsam2_tpu_torch.models.prompt_encoder import PromptEncoder
+from us_video_medsam2_tpu_torch.models.vitdet import ViTDet
 from us_video_medsam2_tpu_torch.ops.posenc import sine_pe_1d, sine_pos_embed_2d
 from us_video_medsam2_tpu_torch.ops.resize import resize2d
 
@@ -38,7 +40,11 @@ class SAM2Model(nn.Module):
         super().__init__()
         c = self.cfg = cfg
         self.dtype = torch.float32
-        self.image_encoder = ImageEncoder(Hiera(c.hiera), FpnNeck(c.neck), scalp=c.neck_scalp)
+        if c.hiera is not None:
+            trunk, neck = Hiera(c.hiera), FpnNeck(c.neck)
+        else:
+            trunk, neck = ViTDet(c.vitdet), ViTDetNeck(c.neck)
+        self.image_encoder = ImageEncoder(trunk, neck, scalp=c.neck_scalp)
         self.memory_attention = MemoryAttention(c.memory_attention)
         self.memory_encoder = MemoryEncoder(c.memory_encoder)
         self.sam_prompt_encoder = PromptEncoder(c.hidden_dim, c.feat_size, c.image_size, 16)

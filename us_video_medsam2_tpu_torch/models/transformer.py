@@ -4,15 +4,20 @@ Counterpart of the JAX package's ``models/transformer.py``, batch-first
 [B, N, C]. ``Attention`` (mask decoder) uses the plain attention, as the JAX
 package does at these token counts; ``RoPEAttention`` (memory attention)
 goes through ``ops.attention.sdpa``, the flash kernel on the card, and in
-training with attention dropout through ``kernels.flash_dropout``. Landmark
-pooling is not ported.
+training with attention dropout through ``kernels.flash_dropout``. With
+landmark pooling on (EfficientTAM's efficient cross-attention) the memory
+cross-attention runs ``landmark_attention`` in plain PyTorch, as the JAX
+package computes it outside any kernel.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 
+from us_video_medsam2_tpu_torch.kernels.flash_attention import NEG_INF
 from us_video_medsam2_tpu_torch.kernels.flash_dropout import flash_attention_train
 from us_video_medsam2_tpu_torch.models.layers import MLP, LayerNorm, Linear
 from us_video_medsam2_tpu_torch.ops.attention import attention_plain, sdpa
@@ -55,24 +60,66 @@ class RoPEAttention(Attention):
     unrotated object-pointer keys (``ops.posenc.rope_key_tables``). With
     ``dropout`` > 0 and ``deterministic`` False (training), the attention
     weights are dropped after the softmax with a keep mask made from an int32
-    seed drawn from ``gen`` (transformer.py:340-344)."""
+    seed drawn from ``gen`` (transformer.py:340-344). With ``landmark_pool``
+    > 1 and more rotated keys (``n_rope``, memory slots of ``spatial_hw``
+    tokens) than queries, the attention is ``landmark_attention``."""
 
     def __init__(self, embedding_dim, num_heads, downsample_rate=1, kv_in_dim=None, dropout=0.0):
         super().__init__(embedding_dim, num_heads, downsample_rate, kv_in_dim)
         self.dropout = dropout
 
     def forward(self, q, k, v, rope_q, rope_k, key_mask=None, deterministic=True,
-                gen: torch.Generator | None = None):
+                gen: torch.Generator | None = None, n_rope: int | None = None,
+                landmark_pool: int = 0, spatial_hw=None, landmark_variant: int = 1):
         nh = self.num_heads
         q = apply_rope_halfsplit(_heads(self.q_proj(q), nh), *rope_q)
         k = apply_rope_halfsplit(_heads(self.k_proj(k), nh), *rope_k)
         v = _heads(self.v_proj(v), nh)
-        if self.dropout > 0.0 and not deterministic:
+        n_rope = k.shape[2] if n_rope is None else n_rope
+        if landmark_pool > 1 and n_rope > q.shape[2]:
+            out = landmark_attention(q, k, v, n_rope, landmark_pool, spatial_hw, key_mask, landmark_variant)
+        elif self.dropout > 0.0 and not deterministic:
             seed = int(torch.randint(-(2**31), 2**31, (), generator=gen))
             out = flash_attention_train(q, k, v, key_mask, seed, self.dropout)
         else:
             out = sdpa(q, k, v, key_mask)
         return self.out_proj(_merge(out))
+
+
+def landmark_attention(q, k, v, n_rope: int, pool: int, spatial_hw, key_mask=None, variant: int = 1):
+    """EfficientTAM's landmark-pooled attention over [B, H, L, D]
+    (efficient_track_anything/modeling/sam/transformer.py:317-532): the first
+    ``n_rope`` keys and values, memory slots of ``spatial_hw`` tokens, are
+    average-pooled ``pool`` x ``pool`` per slot; the pointer keys after them
+    stay. The pooled keys' area is compensated by 2·log(pool), as a logit bias
+    (variant 1, EfficientRoPEAttention1) or added to the pooled key values
+    (variant 2). A slot's validity is uniform over its tokens, so the mask
+    pools by taking one token of each pool. f32 logits and softmax,
+    probabilities rounded to the value dtype, f32 accumulation."""
+    b, nh, _, d = q.shape
+    hh, ww = spatial_hw
+    n_slots = n_rope // (hh * ww)
+
+    def pool_tokens(x):
+        xs = x[:, :, :n_rope].reshape(b, nh, n_slots, hh // pool, pool, ww // pool, pool, d)
+        return xs.mean(dim=(4, 6)).reshape(b, nh, -1, d)
+
+    k_land, v_land = pool_tokens(k), pool_tokens(v)
+    comp = 2.0 * math.log(pool)
+    if variant == 2:
+        k_land = k_land + comp
+    k_full = torch.cat([k_land, k[:, :, n_rope:]], 2)
+    v_full = torch.cat([v_land, v[:, :, n_rope:]], 2)
+    s = torch.matmul(q.float(), k_full.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    n_land = k_land.shape[2]
+    if variant == 1:
+        s[..., :n_land] += comp
+    if key_mask is not None:
+        m_sp = key_mask[:, :n_rope].reshape(b, n_slots, hh * ww)[:, :, :: pool * pool]
+        m = torch.cat([m_sp.reshape(b, -1), key_mask[:, n_rope:]], 1)
+        s = torch.where(m[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, -1)
+    return torch.matmul(p.to(v.dtype).float(), v_full.float()).to(q.dtype)
 
 
 class TwoWayAttentionBlock(nn.Module):
