@@ -8,8 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. the build: every ``csrc/*.cu`` kernel compiled for sm_90a (timed as set-up),
    with the registers and spills that ``-Xptxas -v`` reports for the kernels
-   of ``flash_dropout.cu``, ``layer_norm.cu`` and the two window-attention
-   sources (both head-dim instantiations; a spill fails the run);
+   of ``flash_dropout.cu``, ``layer_norm.cu``, ``ln_mlp_residual.cu`` (every
+   D, with and without the hidden split, and the combine) and the two
+   window-attention sources (both head-dim instantiations; a spill fails the
+   run);
 3. each kernel against its plain PyTorch version at every shape the main path
    gives it, in bf16: max abs / rel error against the stated tolerance, and
    times (CUDA events over runs of back-to-back launches) of the kernel, the
@@ -22,7 +24,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    MLP and window attention are held again, untimed, at the training path's
    shapes (one encoder call over T·B = 4 frames); each kernel once more at
    shapes off the main path (ragged tiles, batch and heads above 1, a fully
-   masked batch), against the same tolerance. The gradient of each of these
+   masked batch), against the same tolerance. The MLP kernel splits the
+   hidden axis across blocks (``mlp_splits``, as many splits as one wave of
+   blocks holds) at every main-path shape but the first: the blocks an SM
+   holds at each D must be those ``mlp_splits`` assumes
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), its device time per
+   call (both kernels) is printed at each shape, two calls at a split shape must give the same bits, the plain model
+   of the split must agree with the plain version and the check must reject
+   that model combined without one split's partial. The gradient of each of these
    four wrappers (the kernel forward, the plain version's vjp recomputed) is
    held against autograd of the plain version at a training shape, and its
    backward must launch no kernel. The
@@ -258,8 +267,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_report(msgs, sources=("flash_dropout.cu", "layer_norm.cu", "window_attention.cu",
-                                "qkv_window_attention.cu")) -> None:
+def ptxas_report(msgs, sources=("flash_dropout.cu", "layer_norm.cu", "ln_mlp_residual.cu",
+                                "window_attention.cu", "qkv_window_attention.cu")) -> None:
     """Registers and spills of each kernel of ``sources`` from the build's
     ``-Xptxas -v`` messages; raises if one of them spills."""
     import re
@@ -308,7 +317,7 @@ def bound_ms(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def device_ms(fn, calls: int = 10, attempts: int = 3) -> float:
+def device_ms(fn, calls: int = 10, attempts: int = 3, by_kernel: bool = False) -> float:
     """Device time per call of ``fn``: the self device time of every kernel
     that ``calls`` calls launched, from torch.profiler's CUDA kernel events,
     after one warm-up call. At these sizes the CUDA-event time of
@@ -317,31 +326,37 @@ def device_ms(fn, calls: int = 10, attempts: int = 3) -> float:
     calls (3 of 10). So a profile whose kernel count is neither a multiple
     of ``calls`` (every call launches the same kernels) nor that of the
     profile before it is taken again, up to ``attempts`` times, and the
-    profile that saw the most kernels is kept."""
+    profile that saw the most kernels is kept. ``by_kernel`` also logs the
+    kept profile's device ms per call of each kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    best, last = (0, 0.0), None
+    best, last = (0, 0.0, {}), None
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us, kernels = 0.0, 0
+        us, kernels, names = 0.0, 0, {}
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 t = getattr(e, "self_device_time_total", None)
-                us += e.self_cuda_time_total if t is None else t
+                t = e.self_cuda_time_total if t is None else t
+                us += t
                 kernels += e.count
-        best = max(best, (kernels, us))
+                names[e.key] = names.get(e.key, 0.0) + t
+        best = max(best, (kernels, us, names), key=lambda b: b[:2])
         if kernels and (kernels % calls == 0 or kernels == last):
             break
         log(f"      the profiler saw {kernels} kernels for {calls} calls (attempt {attempt} of {attempts})")
         last = kernels
     if not best[0]:
         raise AssertionError("the profiler saw no device time")
+    if by_kernel:
+        for key, t in sorted(best[2].items(), key=lambda kv: -kv[1]):
+            log(f"      {t / 1e3 / calls:.4f} ms a call: {key[:100]}")
     return best[1] / 1e3 / calls
 
 
@@ -432,7 +447,14 @@ def check_kernels(g) -> dict:
         flash_splits,
     )
     from us_video_medsam2_tpu_torch.kernels.layer_norm import layer_norm, layer_norm_plain
-    from us_video_medsam2_tpu_torch.kernels.ln_mlp_residual import ln_mlp_residual, ln_mlp_residual_plain
+    from us_video_medsam2_tpu_torch.kernels.ln_mlp_residual import (
+        BLOCKS_PER_SM,
+        SUPPORTED_D as SUPPORTED_MLP_D,
+        blocks_per_sm,
+        ln_mlp_residual,
+        ln_mlp_residual_plain,
+        mlp_splits,
+    )
     from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
 
     dev = "cuda"
@@ -461,18 +483,23 @@ def check_kernels(g) -> dict:
     r = rows["ln_mlp_residual"] = Row("ln_mlp_residual")
     log("ln_mlp_residual (two-pass LN eps 1e-6, exact GELU)")
     for (n, d, f), cnt in MLP_SHAPES:
-        lw = 1.0 + rn(d, scale=0.1, dtype=torch.float32)
-        lb = rn(d, scale=0.1, dtype=torch.float32)
-        w1, b1 = rn(f, d, scale=d**-0.5), rn(f, scale=0.1, dtype=torch.float32)
-        w2, b2 = rn(d, f, scale=f**-0.5), rn(d, scale=0.1, dtype=torch.float32)
-        args = (rn(TRAIN_T * n, d), lw, lb, w1, b1, w2, b2)
+        args = mlp_args(rn, TRAIN_T * n, d, f)
         r.check(compare(f"({TRAIN_T * n},{d},{f}) training", ln_mlp_residual(*args),
                         ln_mlp_residual_plain(*args)))
         args = (rn(n, d), *args[1:])
         err = compare(f"({n},{d},{f})", ln_mlp_residual(*args), ln_mlp_residual_plain(*args))
         bnd, by = bound_ms(4 * n * d + 4 * d * f + 4 * (f + 3 * d), 4 * n * d * f, BF16_FLOPS)
+        log(f"    ({n},{d},{f}): {mlp_splits(n, d, f)} hidden splits")
         r.add([n, d, f], cnt, err, time_ms(lambda: ln_mlp_residual(*args)),
-              time_ms(lambda: ln_mlp_residual_plain(*args)), bnd, by)
+              time_ms(lambda: ln_mlp_residual_plain(*args)), bnd, by,
+              dev=(device_ms(lambda: ln_mlp_residual(*args), by_kernel=True), None))
+    for d in SUPPORTED_MLP_D:  # mlp_splits sizes its grid to one wave from this table
+        held = [blocks_per_sm(d, split) for split in (False, True)]
+        log(f"    D {d}: {held} blocks an SM (without, with the split; mlp_splits takes {BLOCKS_PER_SM[d]})")
+        if held != [BLOCKS_PER_SM[d]] * 2:
+            raise AssertionError(f"ln_mlp_residual at D {d}: an SM holds {held} blocks, BLOCKS_PER_SM says "
+                                 f"{BLOCKS_PER_SM[d]}")
+    check_mlp_splits(rn)
 
     r = rows["window_attention"] = Row("window_attention")
     for hd, shapes, path in ((HD, WIN_SHAPES, "sam2.1_hiera_t512"), (HD_VIT, WIN64_SHAPES, "EfficientMedSAM-S / -Ti")):
@@ -550,10 +577,9 @@ def check_kernels(g) -> dict:
     x = rn(1005, 384)
     w, b = 1.0 + rn(384, scale=0.1, dtype=torch.float32), rn(384, scale=0.1, dtype=torch.float32)
     compare("layer_norm (1005,384)", layer_norm(x, w, b), layer_norm_plain(x, w, b))
-    x = rn(1000, 192)
-    args = (x, w[:192], b[:192], rn(768, 192, scale=192**-0.5), rn(768, scale=0.1, dtype=torch.float32),
-            rn(192, 768, scale=768**-0.5), rn(192, scale=0.1, dtype=torch.float32))
-    compare("ln_mlp_residual (1000,192,768)", ln_mlp_residual(*args), ln_mlp_residual_plain(*args))
+    args = mlp_args(rn, 1000, 192, 768)
+    compare(f"ln_mlp_residual (1000,192,768), {mlp_splits(1000, 192, 768)} splits", ln_mlp_residual(*args),
+            ln_mlp_residual_plain(*args))
     for shape, ws, nh, pool, hd in (((2, 28, 42), 14, 2, True, HD), ((2, 14, 21), 7, 3, False, HD),
                                     ((2, 42, 42), 14, 6, False, HD_VIT), ((2, 28, 28), 14, 2, True, HD_VIT)):
         qkv = rn(*shape, 3 * nh * hd)
@@ -567,6 +593,51 @@ def check_kernels(g) -> dict:
             flash_attention_plain(q, k, v, mask), attention=True)
     check_flash_splits(rn, g)
     return rows
+
+
+def mlp_args(rn, n, d, f):
+    """Seeded MLP inputs in the kernel's types, at the scale of the model's init."""
+    import torch
+
+    f32 = torch.float32
+    return (rn(n, d), 1.0 + rn(d, scale=0.1, dtype=f32), rn(d, scale=0.1, dtype=f32), rn(f, d, scale=d**-0.5),
+            rn(f, scale=0.1, dtype=f32), rn(d, f, scale=f**-0.5), rn(d, scale=0.1, dtype=f32))
+
+
+def check_mlp_splits(rn) -> None:
+    """The MLP kernel where it splits the hidden axis across blocks: two calls
+    on the same inputs give the same bits (the partials are summed in a fixed
+    order, with no atomics); the plain model of the split agrees with the
+    plain version, and the check rejects that model combined without split
+    0's partial."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.kernels.ln_mlp_residual import (
+        combine_partials,
+        ln_mlp_residual,
+        ln_mlp_residual_plain,
+        ln_mlp_residual_split_partials,
+        mlp_splits,
+    )
+
+    log("ln_mlp_residual hidden splits (bf16, untimed)")
+    for n, d, f in ((1024, 384, 1536), (256, 768, 3072)):
+        splits = mlp_splits(n, d, f)
+        if splits < 2:
+            raise AssertionError(f"({n},{d},{f}): the split checks need hidden splits, got {splits}")
+        args = mlp_args(rn, n, d, f)
+        first, second = ln_mlp_residual(*args), ln_mlp_residual(*args)
+        same = bool(torch.equal(first, second))
+        log(f"  ({n},{d},{f}), {splits} splits: two calls bit-identical: {same}")
+        if not same:
+            raise AssertionError(f"({n},{d},{f}): the MLP kernel is not deterministic")
+        want = ln_mlp_residual_plain(*args)
+        parts = ln_mlp_residual_split_partials(*args[:6], splits)
+        compare(f"split model ({splits} splits) vs plain", combine_partials(args[0], parts, args[6]), want)
+        ok, msg, _ = agreement(combine_partials(args[0], parts[1:], args[6]), want, attention=False)
+        log(f"  self-test, combined without split 0's partial: {msg} {'passed (FAIL)' if ok else 'rejected'}")
+        if ok:
+            raise AssertionError("the MLP check does not see a split left out of the combine")
 
 
 def check_flash_splits(rn, g) -> None:

@@ -12,8 +12,10 @@ and video, ``init_state`` -> ``add_new_points_or_box`` ->
 timed runs (host clock around propagation ending in ``synchronize``), then
 one run under torch.profiler. Prints one JSON line per tree (ms per tracked
 frame of each run and their median, device busy time of the profiled run,
-and the device time of the kernels whose name holds "flash") and the card's
-name and power limit. Needs a CUDA device; about 40 s a tree.
+and the device time of the kernels whose name holds "flash" and of those
+whose name holds "ln_mlp_residual", the latter also by D, the kernels'
+first template argument, with the launches of the MLP's main kernel at that
+D: t512 runs one shape at each D) and the card's name and power limit. Needs a CUDA device; about 40 s a tree.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import subprocess
 import sys
 
 CHILD = r"""
-import json, statistics, sys
+import json, re, statistics, sys
 import torch
 from torch.profiler import ProfilerActivity, profile
 import chip_smoke as c
@@ -51,7 +53,8 @@ for _ in range(repeats):
     per_frame.append(1e3 * t_prop / (c.FRAMES - 1))
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     c.run_main_path(predictor, video, click)
-busy = flash = 0.0
+busy = flash = mlp = 0.0
+mlp_by_d = {}
 for e in prof.key_averages():
     if e.device_type != torch.autograd.DeviceType.CUDA:
         continue
@@ -61,8 +64,19 @@ for e in prof.key_averages():
     busy += us
     if "flash" in e.key:
         flash += us
+    if "ln_mlp_residual" in e.key:
+        mlp += us
+        d = re.search(r"ln_mlp_residual_(?:combine_)?kernel<(\d+)", e.key)
+        by = mlp_by_d.setdefault(int(d.group(1)) if d else 0, {"device_ms": 0.0, "calls": 0})
+        by["device_ms"] += us / 1e3
+        if "combine" not in e.key:
+            by["calls"] += e.count
 print(json.dumps({"ms_per_tracked_frame": per_frame, "median_ms": statistics.median(per_frame),
-                  "device_busy_ms": busy / 1e3, "flash_device_ms": flash / 1e3}))
+                  "device_busy_ms": busy / 1e3, "flash_device_ms": flash / 1e3,
+                  "mlp_device_ms": mlp / 1e3,
+                  "mlp_device_ms_per_call_by_d": {d: v["device_ms"] / max(v["calls"], 1)
+                                                   for d, v in sorted(mlp_by_d.items())},
+                  "mlp_calls_by_d": {d: v["calls"] for d, v in sorted(mlp_by_d.items())}}))
 """
 
 

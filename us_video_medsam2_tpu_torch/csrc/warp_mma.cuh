@@ -38,6 +38,12 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t r[4]) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
+// two 8x8 matrices: lanes 0-15 give the row addresses (those of 16-31 are not read)
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t r[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
 __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t r[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
