@@ -11,7 +11,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    of ``flash_dropout.cu``, ``layer_norm.cu``, ``ln_mlp_residual.cu`` (every
    D, with and without the hidden split, and the combine) and the two
    window-attention sources (both head-dim instantiations; a spill fails the
-   run);
+   run); every (head dim, key tiles) instantiation of the window-attention
+   kernel must be there, its registers printed beside those ``window_tiles``'
+   occupancy table assumes (phase 3 holds the table's blocks an SM against
+   the card's);
 3. each kernel against its plain PyTorch version at every shape the main path
    gives it, in bf16: max abs / rel error against the stated tolerance, and
    times (CUDA events over runs of back-to-back launches) of the kernel, the
@@ -71,10 +74,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    its gradient as those above. Window attention and its qkv variant are
    held and timed at head dim 64 too, at EfficientMedSAM-S's and -Ti's ws-14
    blocks ([1, 42, 42, 3·nh·64], nh 6 and 3, Cin 384 and 192), and again
-   untimed at B 2 and with q-pooling on a 28x28 map; the check must reject
-   the plain output with heads 0 and 1 swapped; window attention's device
-   time per call (torch.profiler) is printed at the ws-14 shapes of both
-   head dims;
+   untimed at B 2 and with q-pooling on a 28x28 map. Window attention is held
+   at every geometry at B 1, at B 4 (hd 96) and B 2 (hd 64), without and,
+   where the map is padded, with the last-strip cut (``real_h``, as the
+   models call it): with the cut the real rows must be bit-identical to the
+   uncut call and the cut rows exact zeros, also at edge shapes whose last
+   real slab is partial. The blocks an SM holds of each grid that
+   ``window_tiles`` picks must be those its table assumes. The check must
+   reject the plain output with heads 0 and 1 swapped, with each window's
+   last real query slab zeroed, and the plain version over the keys padded
+   to 208 without masking the pad keys. Window attention and its qkv variant
+   print their device time per call (torch.profiler) at every geometry;
 4. the main path: ``sam2.1_hiera_t512`` at full width in bf16 on the card with
    weights from a seeded generator (the object-score head's output bias is
    set to +10 so the object is present on every frame and the masks are not
@@ -192,15 +202,18 @@ LN_SHAPES = [((16384, 96), 2), ((4096, 192), 2), ((1024, 384), 7 + 12), ((256, 7
 MLP_SHAPES = [((16384, 96, 384), 1), ((4096, 192, 768), 2), ((1024, 384, 1536), 7 + 12),
               ((256, 768, 3072), 2)]
 FLASH_PER_FRAME = 4 + 4  # each of the self and cross shapes, per tracked frame of each model
-WIN_SHAPES = [((128, 8, 1, False), 1), ((128, 8, 2, True), 1), ((64, 4, 2, False), 1),
-              ((64, 4, 4, True), 1), ((42, 14, 4, False), 3), ((42, 14, 8, True), 1),
-              ((21, 7, 8, False), 1)]
+# window attention: (Hp, ws, nh, q_pool, real map side) of each windowed block, with launches
+# per frame (32 -> 42 and 16 -> 21 are the padded maps of stages 3 and 4, whose
+# last strip's pad query rows the model cuts)
+WIN_SHAPES = [((128, 8, 1, False, 128), 1), ((128, 8, 2, True, 128), 1), ((64, 4, 2, False, 64), 1),
+              ((64, 4, 4, True, 64), 1), ((42, 14, 4, False, 32), 3), ((42, 14, 8, True, 32), 1),
+              ((21, 7, 8, False, 16), 1)]
 HD = 96
 # EfficientMedSAM-S's ws-14 blocks at head dim 64 (32x32 tokens padded to
 # 42x42, 8 launches per encoded frame) and -Ti's (embed 192, 3 heads; on no
 # path this script drives), for window attention and its qkv variant
 HD_VIT = 64
-WIN64_SHAPES = [((42, 14, 6, False), 8), ((42, 14, 3, False), 0)]
+WIN64_SHAPES = [((42, 14, 6, False, 32), 8), ((42, 14, 3, False, 32), 0)]
 QKV64_SHAPES = [((42, 14, 6, False, 384, 32), 8), ((42, 14, 3, False, 192, 32), 0)]
 # the fused configuration: (Hp, ws, nh, q_pool, Cin, real map side) of each
 # windowed block's in-kernel qkv projection (32 -> 42 and 16 -> 21 are the
@@ -268,11 +281,13 @@ def card_line() -> str:
 
 
 def ptxas_report(msgs, sources=("flash_dropout.cu", "layer_norm.cu", "ln_mlp_residual.cu",
-                                "window_attention.cu", "qkv_window_attention.cu")) -> None:
+                                "window_attention.cu", "qkv_window_attention.cu")) -> dict:
     """Registers and spills of each kernel of ``sources`` from the build's
-    ``-Xptxas -v`` messages; raises if one of them spills."""
+    ``-Xptxas -v`` messages; raises if one of them spills. Returns
+    {source: {mangled kernel name: registers}}."""
     import re
 
+    regs = {}
     for msg in msgs:
         src = next((x for x in sources if msg.startswith(f"[nvcc {x}]")), None)
         if src is None:
@@ -290,6 +305,29 @@ def ptxas_report(msgs, sources=("flash_dropout.cu", "layer_norm.cu", "ln_mlp_res
                     raise AssertionError(f"{src}: kernel {func} spills registers")
             elif "Used" in line and "registers" in line and func:
                 log(f"  {src} {func}: {line.split(':', 1)[-1].strip()}")
+                regs.setdefault(src, {})[func] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return regs
+
+
+def check_window_registers(regs) -> None:
+    """Every (head dim, key tiles) instantiation of the window-attention
+    kernel was compiled. Its registers are printed beside those of
+    window_tiles' occupancy table: a difference fails only where it changes
+    the blocks an SM holds, which phase 3 checks on the card."""
+    import re
+
+    from us_video_medsam2_tpu_torch.kernels.window_attention import REGISTERS
+
+    got = {}
+    for func, n in regs.get("window_attention.cu", {}).items():
+        m = re.search(r"window_attention_kernelILi(\d+)ELi(\d+)E", func)
+        if m:
+            got[(int(m.group(1)), int(m.group(2)))] = n
+    log(f"  window_attention.cu: registers by (hd, key tiles) {dict(sorted(got.items()))}; "
+        f"window_tiles' table {dict(sorted(REGISTERS.items()))}")
+    if got.keys() != REGISTERS.keys():
+        raise AssertionError(f"window_attention.cu: instantiations {sorted(got)} differ from "
+                             f"window_attention.REGISTERS' {sorted(REGISTERS)}")
 
 
 def time_ms(fn, launches: int = 20, batches: int = 5, warmup: int = 3) -> float:
@@ -455,7 +493,6 @@ def check_kernels(g) -> dict:
         ln_mlp_residual_plain,
         mlp_splits,
     )
-    from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
 
     dev = "cuda"
     bf = torch.bfloat16
@@ -501,37 +538,7 @@ def check_kernels(g) -> dict:
                                  f"{BLOCKS_PER_SM[d]}")
     check_mlp_splits(rn)
 
-    r = rows["window_attention"] = Row("window_attention")
-    for hd, shapes, path in ((HD, WIN_SHAPES, "sam2.1_hiera_t512"), (HD_VIT, WIN64_SHAPES, "EfficientMedSAM-S / -Ti")):
-        log(f"window_attention (hd {hd}, f32 scores, bf16 P): {path}")
-        for (hp, ws, nh, pool), cnt in shapes:
-            if hd == HD:  # the training path runs the t512 trunk
-                qkv = rn(TRAIN_T, hp, hp, 3 * nh * hd)
-                r.check(compare(f"B{TRAIN_T} {hp}^2 ws{ws} nh{nh} pool={pool} training",
-                                window_attention(qkv, ws, nh, pool), window_attention_plain(qkv, ws, nh, pool),
-                                attention=True))
-            qkv = rn(1, hp, hp, 3 * nh * hd)
-            wso = ws // 2 if pool else ws
-            want = window_attention_plain(qkv, ws, nh, pool)
-            err = compare(f"{hp}^2 ws{ws} nh{nh} hd{hd} pool={pool}", window_attention(qkv, ws, nh, pool), want,
-                          attention=True)
-            if hd == HD_VIT and nh == 6:
-                # the check must reject an output whose heads 0 and 1 trade places
-                # (a wrong head offset in the gather or the scatter)
-                swapped = want.clone().reshape(*want.shape[:3], nh, hd)
-                swapped[..., [0, 1], :] = swapped[..., [1, 0], :]
-                ok, msg, _ = agreement(swapped.reshape(want.shape), want, attention=True)
-                log(f"  self-test, heads 0 and 1 swapped: {msg} {'passed (FAIL)' if ok else 'rejected'}")
-                if ok:
-                    raise AssertionError("the window-attention check does not see two swapped heads")
-            nwin = (hp // ws) ** 2
-            out_elems = nwin * wso * wso * nh * hd
-            flops = 4 * nwin * nh * (wso * wso) * (ws * ws) * hd
-            bnd, by = bound_ms(2 * qkv.numel() + 2 * out_elems, flops, BF16_FLOPS)
-            # device time at the ws-14 blocks of each head dim, the path's largest calls
-            dev_ms = (device_ms(lambda: window_attention(qkv, ws, nh, pool)), None) if ws == 14 and not pool else None
-            r.add([hp, hp, ws, nh, hd, pool], cnt, err, time_ms(lambda: window_attention(qkv, ws, nh, pool)),
-                  time_ms(lambda: window_attention_plain(qkv, ws, nh, pool)), bnd, by, dev=dev_ms)
+    check_window_attention(rn, rows)
 
     r = rows["flash_attention"] = Row("flash_attention")
     log("flash_attention (D 256, key mask)")
@@ -580,12 +587,14 @@ def check_kernels(g) -> dict:
     args = mlp_args(rn, 1000, 192, 768)
     compare(f"ln_mlp_residual (1000,192,768), {mlp_splits(1000, 192, 768)} splits", ln_mlp_residual(*args),
             ln_mlp_residual_plain(*args))
-    for shape, ws, nh, pool, hd in (((2, 28, 42), 14, 2, True, HD), ((2, 14, 21), 7, 3, False, HD),
-                                    ((2, 42, 42), 14, 6, False, HD_VIT), ((2, 28, 28), 14, 2, True, HD_VIT)):
+    # with real_h: a cut whose last real slab is partial (42 and 35 real query
+    # rows), one at hd 64, and an odd real row count under q-pooling (no cut)
+    for shape, ws, nh, pool, hd, real_h in (((2, 28, 42), 14, 2, True, HD, 26), ((2, 14, 21), 7, 3, False, HD, 12),
+                                            ((2, 42, 42), 14, 6, False, HD_VIT, 30),
+                                            ((2, 28, 28), 14, 2, True, HD_VIT, 25)):
         qkv = rn(*shape, 3 * nh * hd)
-        compare(f"window_attention B{shape[0]} {shape[1]}x{shape[2]} ws{ws} nh{nh} hd{hd} pool={pool}",
-                window_attention(qkv, ws, nh, pool), window_attention_plain(qkv, ws, nh, pool),
-                attention=True)
+        hold_window(f"window_attention B{shape[0]} {shape[1]}x{shape[2]} ws{ws} nh{nh} hd{hd} pool={pool}", qkv, ws,
+                    nh, pool, real_h)
     q, k, v = rn(2, 2, 1000, 256), rn(2, 2, 1100, 256), rn(2, 2, 1100, 256)
     mask = torch.rand(2, 1100, generator=g, device=dev) > 0.3
     mask[1] = False
@@ -593,6 +602,142 @@ def check_kernels(g) -> dict:
             flash_attention_plain(q, k, v, mask), attention=True)
     check_flash_splits(rn, g)
     return rows
+
+
+def window_cut_row(hp, ws, pool, real_h) -> int:
+    """The first output row that the last-strip cut sets to zero (the map's
+    output height where no cut applies)."""
+    from us_video_medsam2_tpu_torch.kernels.window_attention import cut_query_rows
+
+    wso = ws // 2 if pool else ws
+    q_lq = cut_query_rows(hp, ws, pool, real_h)
+    return (hp // ws - 1) * wso + q_lq // wso if q_lq else hp // ws * wso
+
+
+def hold_window(name, qkv, ws, nh, pool, real_h) -> float:
+    """window_attention against its plain version without the cut and, where
+    real_h cuts the last strip, with it: then the real rows must be
+    bit-identical to the uncut call's and the cut rows exact zeros. Returns
+    the max abs error."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
+
+    full = window_attention(qkv, ws, nh, pool)
+    err = compare(f"{name}", full, window_attention_plain(qkv, ws, nh, pool), attention=True)
+    cut_at = window_cut_row(qkv.shape[1], ws, pool, real_h)
+    if cut_at == full.shape[1]:
+        return err
+    cut = window_attention(qkv, ws, nh, pool, real_h)
+    err = max(err, compare(f"{name} real_h {real_h}", cut, window_attention_plain(qkv, ws, nh, pool, real_h),
+                           attention=True))
+    same, zero = torch.equal(cut[:, :cut_at], full[:, :cut_at]), not cut[:, cut_at:].any().item()
+    log(f"    real_h {real_h}: rows 0-{cut_at - 1} bit-identical to the uncut call: {same}; rows {cut_at}-"
+        f"{full.shape[1] - 1} exact zeros: {zero}")
+    if not (same and zero):
+        raise AssertionError(f"{name}: the last-strip cut changed a real row or left a cut row non-zero")
+    return err
+
+
+def plain_with_unmasked_pad_keys(qkv, ws, nh, pool):
+    """The plain window attention over the keys padded with zero rows to a
+    multiple of 16, the pad keys not masked (a kernel that forgets the mask
+    of its key tiles)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, hp, wp, c = qkv.shape
+    hd = c // (3 * nh)
+    nwh, nww, lk = hp // ws, wp // ws, ws * ws
+    wso = ws // 2 if pool else ws
+    t = qkv.reshape(b, nwh, ws, nww, ws, 3, nh, hd).permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, -1, lk, hd)
+    q, k, v = t[0], t[1], t[2]
+    if pool:
+        q = q.reshape(-1, wso, 2, wso, 2, hd).amax(dim=(2, 4)).reshape(-1, wso * wso, hd)
+    pad = -lk % 16
+    k, v = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * (hd**-0.5)
+    p = torch.softmax(s, -1)
+    o = torch.matmul(p.to(qkv.dtype).float(), v.float()).to(qkv.dtype)
+    o = o.reshape(b, nwh, nww, nh, wso, wso, hd).permute(0, 1, 4, 2, 5, 3, 6)
+    return o.reshape(b, nwh * wso, nww * wso, nh * hd)
+
+
+def without_last_real_slab(out, ws, nh, pool, q_lq):
+    """``out`` with the last 16-row query slab holding real rows of every
+    window set to zero (a grid that leaves each window's last slab out)."""
+    b, hpo, wpo, c = out.shape
+    wso = ws // 2 if pool else ws
+    nwh, nww, lq = hpo // wso, wpo // wso, wso * wso
+    o = out.clone().reshape(b, nwh, wso, nww, wso, c).permute(0, 1, 3, 2, 4, 5).reshape(b, nwh, nww, lq, c)
+    for wy in range(nwh):
+        rows = q_lq if q_lq and wy == nwh - 1 else lq
+        o[:, wy, :, (rows - 1) // 16 * 16: rows] = 0
+    o = o.reshape(b, nwh, nww, wso, wso, c).permute(0, 1, 3, 2, 4, 5)
+    return o.reshape(out.shape)
+
+
+def check_window_attention(rn, rows) -> None:
+    """Window attention at every geometry the serving and training paths give
+    it, with and without the last-strip cut, its rejection self-tests, its
+    grid's occupancy against window_tiles' table, and its device time."""
+    from us_video_medsam2_tpu_torch.kernels import window_attention as wa
+
+    r = rows["window_attention"] = Row("window_attention")
+    for hd, shapes, path in ((HD, WIN_SHAPES, "sam2.1_hiera_t512"), (HD_VIT, WIN64_SHAPES, "EfficientMedSAM-S / -Ti")):
+        log(f"window_attention (hd {hd}, f32 scores, bf16 P normalised then rounded): {path}")
+        for (hp, ws, nh, pool, real), cnt in shapes:
+            real_h = real if real < hp else None  # the model passes its unpadded height
+            geo = f"{hp}^2 ws{ws} nh{nh} hd{hd} pool={pool}"
+            for b in (1, TRAIN_T) if hd == HD else (1, 2):  # the training path runs the t512 trunk
+                warps = wa.window_tiles(b, hp, hp, ws, nh, hd, pool, real_h)
+                q_lq = wa.cut_query_rows(hp, ws, pool, real_h)
+                blocks = sum(x["blocks"] for x in wa.grid(b, hp, hp, ws, nh, pool, q_lq, warps))
+                held, model = wa.card_blocks_per_sm(hd, ws, warps), wa.blocks_per_sm(hd, ws, warps)
+                log(f"  B{b} {geo}: window_tiles {warps} warps a block, {blocks} blocks; "
+                    f"an SM holds {held} (window_tiles' table: {model}), {blocks / (wa.SMS * held):.2f} waves")
+                if held != model:
+                    raise AssertionError(f"window_attention B{b} {geo}: an SM holds {held} blocks of {warps} warps, "
+                                         f"window_tiles' table says {model}")
+                qkv = rn(b, hp, hp, 3 * nh * hd)
+                err = hold_window(f"B{b} {geo}", qkv, ws, nh, pool, real_h)
+                if b != 1:
+                    r.check(err)
+                    continue
+                want = wa.window_attention_plain(qkv, ws, nh, pool, real_h)
+                if hd == HD_VIT and nh == 6:
+                    # the check must reject an output whose heads 0 and 1 trade places
+                    # (a wrong head offset in the gather or the scatter)
+                    swapped = want.clone().reshape(*want.shape[:3], nh, hd)
+                    swapped[..., [0, 1], :] = swapped[..., [1, 0], :]
+                    self_test("heads 0 and 1 swapped", swapped.reshape(want.shape), want)
+                if hd == HD and (ws, nh, pool) == (14, 4, False):
+                    # ... each window's last real query slab left out of the grid
+                    self_test("each window's last real query slab zero",
+                              without_last_real_slab(want, ws, nh, pool, q_lq), want)
+                    # ... and the 12 pad keys of the 208-key tiles not masked
+                    self_test("pad keys to 208 unmasked", plain_with_unmasked_pad_keys(qkv, ws, nh, pool),
+                              wa.window_attention_plain(qkv, ws, nh, pool))
+                nwin = (hp // ws) ** 2
+                wso = ws // 2 if pool else ws
+                out_elems = nwin * wso * wso * nh * hd
+                real_rows = nh * (nwin * wso * wso - (hp // ws) * (wso * wso - q_lq) * (q_lq > 0))
+                # bytes: qkv read once but the q of the cut input rows (the function needs
+                # it nowhere: those rows come back as zeros), the whole output written once
+                cut_q = 2 * b * (hp - real_h) * hp * nh * hd if q_lq else 0
+                bnd, by = bound_ms(2 * qkv.numel() - cut_q + 2 * out_elems, 4 * real_rows * ws * ws * hd, BF16_FLOPS)
+                call = (lambda: wa.window_attention(qkv, ws, nh, pool, real_h))
+                r.add([hp, hp, ws, nh, hd, pool, real_h], cnt, err, time_ms(call),
+                      time_ms(lambda: wa.window_attention_plain(qkv, ws, nh, pool, real_h)), bnd, by,
+                      dev=(device_ms(call), None))
+
+
+def self_test(what, bad, want) -> None:
+    """The attention check must reject ``bad`` as an output where ``want`` is right."""
+    ok, msg, _ = agreement(bad, want, attention=True)
+    log(f"  self-test, {what}: {msg} {'passed (FAIL)' if ok else 'rejected'}")
+    if ok:
+        raise AssertionError(f"the window-attention check does not see {what}")
 
 
 def mlp_args(rn, n, d, f):
@@ -785,7 +930,8 @@ def check_fused_kernels(g, rows) -> None:
         bnd, by = bound_ms(2 * a[0].numel() + 2 * a[1].numel() + 4 * a[2].numel() + 2 * out_elems, flops,
                            BF16_FLOPS)
         r.add([hp, hp, ws, nh, hd, pool, cin], cnt, err, time_ms(lambda: qkv_window_attention(*a, ws, nh, pool)),
-              time_ms(lambda: qkv_window_attention_plain(*a, ws, nh, pool)), bnd, by)
+              time_ms(lambda: qkv_window_attention_plain(*a, ws, nh, pool)), bnd, by,
+              dev=(device_ms(lambda: qkv_window_attention(*a, ws, nh, pool)), None))
         log(f"      {nwin * nh} blocks; the window tokens are read {3 * nh} times: "
             f"{3 * nh * 2 * a[0].numel() / 1e6:.2f} MB from L2 against the map's {2 * a[0].numel() / 1e6:.2f} MB")
     log("  library: none (no one PyTorch call projects, gathers the windows, pools q and attends)")
@@ -960,9 +1106,9 @@ def check_kernel_grads(g) -> None:
               (rn(n, d), 1.0 + rn(d, scale=0.1, dtype=f32), rn(d, scale=0.1, dtype=f32),
                rn(f, d, scale=d**-0.5), rn(f, scale=0.1, dtype=f32), rn(d, f, scale=f**-0.5),
                rn(d, scale=0.1, dtype=f32), 1e-6), tuple(range(7)), g)
-    for hp, ws, nh, pool in ((42, 14, 4, False), (42, 14, 8, True)):
-        hold_grad(f"window_attention B{TRAIN_T} {hp}^2 ws{ws} nh{nh} pool={pool}", window_attention,
-                  window_attention_plain, (rn(TRAIN_T, hp, hp, 3 * nh * HD), ws, nh, pool), (0,), g)
+    for hp, ws, nh, pool in ((42, 14, 4, False), (42, 14, 8, True)):  # the 32x32 map, cut as the model calls it
+        hold_grad(f"window_attention B{TRAIN_T} {hp}^2 ws{ws} nh{nh} pool={pool} real_h 32", window_attention,
+                  window_attention_plain, (rn(TRAIN_T, hp, hp, 3 * nh * HD), ws, nh, pool, 32), (0,), g)
     mask = train_key_mask(dev)
     b, lk = mask.shape
     hold_grad(f"flash_attention q1024 k{lk} masked", flash_attention, flash_attention_plain,
@@ -1687,7 +1833,7 @@ def main(argv=None) -> int:
     log(f"[2/8] build: {lib.name} in {build_s:.2f} s (set-up)")
     if msgs:
         (lib.parent / "nvcc.log").write_text("\n".join(msgs))
-        ptxas_report(msgs)
+        check_window_registers(ptxas_report(msgs))
     else:
         log("  (library built before this run: no compiler report)")
 

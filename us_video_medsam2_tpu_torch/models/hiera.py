@@ -78,7 +78,9 @@ class MultiScaleAttention(nn.Module):
                 full = self.qkv.bias.to(qkv.dtype).expand(b, h + pad_h, w + pad_w, -1).clone()
                 full[:, :h, :w] = qkv
                 qkv = full
-            o = window_attention(qkv.contiguous(), ws, nh, self.q_pool)
+            # h: the last strip's pad query rows are cut and come back zero, as
+            # the JAX package calls its kernel; they are sliced off here
+            o = window_attention(qkv.contiguous(), ws, nh, self.q_pool, h)
             out = o[:, :ho, :wo]
         return self.proj(out)
 
