@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. the build: every ``csrc/*.cu`` kernel compiled for sm_90a (timed as set-up),
    with the registers and spills that ``-Xptxas -v`` reports for the kernels
-   of ``flash_dropout.cu``, ``layer_norm.cu``, ``ln_mlp_residual.cu`` (every
+   of ``flash_dropout.cu`` (the forward and its combine must be there),
+   ``layer_norm.cu``, ``ln_mlp_residual.cu`` (every
    D, with and without the hidden split, and the combine) and the two
    window-attention sources (both head-dim instantiations; a spill fails the
    run); every (head dim, key tiles) instantiation of the window-attention
@@ -42,15 +43,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    it (out, lse, dq, dk, dv) at the training path's memory self- and
    cross-attention shapes, at rates 0.1 and 0, with a check that must reject
    the plain version run with seed + 1, at edge shapes, and where the keep
-   hash's element index passes 2^31 and 2^32. The backward splits the
+   hash's element index passes 2^31 and 2^32. The forward deals the key
+   tiles out to splits in turn (``fwd_splits``, one wave of the blocks an
+   SM holds, which must be the card's
+   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; ``fwd_split_tiles``): at both training shapes two calls must
+   give bit-identical out and lse, the plain model of the split must agree
+   with the plain version and the check must reject that model combined
+   without split 0's partial and without the exp(m_i - m) weights; it is
+   held again, and repeated bit for bit, where one split's tiles are all
+   masked beside valid ones, next to a batch with none valid; its
+   device time per call and SDPA's forward with dropout 0.1 are printed,
+   with the keep hash's integer floor beside the bound. The backward splits the
    queries of its dk/dv blocks and the keys of its dq blocks
    (``bwd_splits``): it is held again where the last ranges are ragged and
    a query range lies past Lq, where a key range holds only masked keys
    beside a batch with none valid, and where each has one split; two calls
    on the same inputs must give bit-identical dq, dk and dv, and the check
    must reject the plain split model combined without one query range's dk
-   partial. LayerNorm and the dropout backward, and ``F.layer_norm`` and
-   SDPA's backward beside them, also print their device time per call from
+   partial. LayerNorm and the dropout forward and backward, and
+   ``F.layer_norm`` and SDPA's forward and backward beside them, also print
+   their device time per call from
    torch.profiler's kernel events (the CUDA-event time of back-to-back
    calls is the host's at these sizes). The two kernels of the fused
    configuration are held at every shape the main path gives them (CXBlock
@@ -328,6 +340,31 @@ def check_window_registers(regs) -> None:
     if got.keys() != REGISTERS.keys():
         raise AssertionError(f"window_attention.cu: instantiations {sorted(got)} differ from "
                              f"window_attention.REGISTERS' {sorted(REGISTERS)}")
+
+
+def sm_clock_hz() -> float:
+    """The card's largest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def check_dropout_fwd_registers(regs) -> None:
+    """The dropout forward's kernel and its combine were compiled, so the
+    spill check above covered them."""
+    import re
+
+    got = {}
+    for func, n in regs.get("flash_dropout.cu", {}).items():
+        m = re.search(r"fwd\d+(kernel|combine_kernel)E", func)
+        if m:
+            got[m.group(1)] = n
+    log(f"  flash_dropout.cu forward: registers {got}")
+    if sorted(got) != ["combine_kernel", "kernel"]:
+        raise AssertionError(f"flash_dropout.cu: forward kernels {sorted(got)} compiled, expected the kernel "
+                             "and its combine")
 
 
 def time_ms(fn, launches: int = 20, batches: int = 5, warmup: int = 3) -> float:
@@ -1205,10 +1242,14 @@ def check_dropout_kernels(g, rows) -> None:
     import torch.nn.functional as F
 
     from us_video_medsam2_tpu_torch.kernels.flash_dropout import (
+        FWD_BLOCK_Q,
+        FWD_BLOCKS_PER_SM,
         bwd_splits,
         flash_attention_train_plain,
         flash_dropout_bwd,
         flash_dropout_fwd,
+        fwd_blocks_per_sm,
+        fwd_splits,
     )
 
     dev = "cuda"
@@ -1222,6 +1263,12 @@ def check_dropout_kernels(g, rows) -> None:
     log(f"flash_dropout (D 256, rate {DROPOUT} and 0): memory attention of the training path, "
         f"{TRAIN_OBJECTS} objects; cross-attention Lk = {lk_cross} at T = {TRAIN_T} "
         f"({int(mask[0].sum())} valid keys on the last tracked frame)")
+    held = fwd_blocks_per_sm()  # fwd_splits sizes its grid to one wave of them
+    log(f"  forward: {held} blocks an SM (fwd_splits takes {FWD_BLOCKS_PER_SM})")
+    if held != FWD_BLOCKS_PER_SM:
+        raise AssertionError(f"flash_dropout_fwd: an SM holds {held} blocks, FWD_BLOCKS_PER_SM says "
+                             f"{FWD_BLOCKS_PER_SM}")
+    clock = sm_clock_hz()
     rf = rows["flash_dropout_fwd"] = Row("flash_dropout_fwd")
     rb = rows["flash_dropout_bwd"] = Row("flash_dropout_bwd")
     b, lq, d = TRAIN_OBJECTS, 1024, 256
@@ -1246,8 +1293,20 @@ def check_dropout_kernels(g, rows) -> None:
             lib_f = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, dropout_p=DROPOUT))
         qkv_bytes = 2 * b * lq * d + 2 * 2 * b * valid * d
         bnd, by = bound_ms(qkv_bytes + mb + 2 * b * lq * d + 4 * b * lq, 4 * b * lq * valid * d, BF16_FLOPS)
+        splits = fwd_splits(b, lq, lk)
+        # the keep hash: ~12 integer operations an element of the valid keys, at the INT32 rate
+        # (132 SMs x 64 lanes x the SM clock); printed beside the bound, which it does not enter
+        hash_ms = 12 * b * lq * valid / (132 * 64 * clock) * 1e3
+        log(f"    forward grid {-(-lq // FWD_BLOCK_Q)} query tiles x {splits} key splits x {b}; "
+            f"hash floor {hash_ms:.4f} ms ({b * lq * valid} elements x 12 at {clock / 1e9:.3f} GHz) beside "
+            f"the bound {bnd:.4f} ms ({by})")
+        with torch.no_grad():
+            dev_f = (device_ms(lambda: flash_dropout_fwd(q, k, v, m, seed, DROPOUT), by_kernel=True),
+                     device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, dropout_p=DROPOUT)))
         rf.add([b, lq, lk, d, m is not None], 4, err,
-               time_ms(lambda: flash_dropout_fwd(q, k, v, m, seed, DROPOUT)), plain_f, bnd, by, lib_f)
+               time_ms(lambda: flash_dropout_fwd(q, k, v, m, seed, DROPOUT)), plain_f, bnd, by, lib_f, dev_f)
+        check_fwd_deterministic(f"{name} q{lq} k{lk}, {splits} splits", q, k, v, m, seed)
+        reject_fwd_combine(f"{name} q{lq} k{lk}", q, k, v, m, seed, splits)
         check_bwd_deterministic(f"{name} q{lq} k{lk}", q, k, v, m, seed, out, lse, go)
         if m is None:
             reject_dropped_partial(q, k, v, seed, out, lse, go)
@@ -1266,7 +1325,7 @@ def check_dropout_kernels(g, rows) -> None:
             f"dq {-(-lq // 64)} query tiles x {ks} key splits x {b}")
     log("  library = F.scaled_dot_product_attention(attn_mask=bool, dropout_p=0.1): another keep mask, "
         "the same function in distribution; backward = (forward + backward) - forward; its device time "
-        "per call is that of torch.autograd.grad of one forward's output")
+        "per call is that of torch.autograd.grad of one forward's output, the forward's that of one call")
     log("flash_dropout edge shapes (bf16, untimed): ragged Lq/Lk, B2 H2, batch 1 all masked")
     q, k, v, go = rn(2, 2, 1000, d), rn(2, 2, 1100, d), rn(2, 2, 1100, d), rn(2, 2, 1000, d)
     m = torch.rand(2, 1100, generator=g, device=dev) > 0.3
@@ -1274,7 +1333,53 @@ def check_dropout_kernels(g, rows) -> None:
     for rate in (DROPOUT, 0.0):
         check_dropout_call("B2 H2 q1000 k1100", q, k, v, m, seed, rate, go)
     check_dropout_splits(rn, g, seed)
+    check_dropout_fwd_splits(rn, g, seed)
     check_dropout_index_wrap(rn, seed)
+
+
+def check_fwd_deterministic(name, q, k, v, mask, seed) -> None:
+    """Two forward calls on the same inputs give bit-identical out and lse
+    (the splits are combined in a fixed order, with no atomics)."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.kernels.flash_dropout import flash_dropout_fwd
+
+    first = flash_dropout_fwd(q, k, v, mask, seed, DROPOUT)
+    second = flash_dropout_fwd(q, k, v, mask, seed, DROPOUT)
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
+    log(f"  {name}: two forward calls bit-identical (out, lse): {same}")
+    if not all(same):
+        raise AssertionError(f"{name}: the forward kernels are not deterministic")
+
+
+def reject_fwd_combine(name, q, k, v, mask, seed, splits) -> None:
+    """The plain model of the forward's split over key tiles against the
+    plain version, then the same model combined without split 0's partial
+    and without the exp(m_i - m) weights, both of which the check must
+    reject."""
+    from us_video_medsam2_tpu_torch.kernels.flash_dropout import (
+        combine_fwd_partials,
+        flash_attention_train_plain,
+        flash_dropout_fwd_split_partials,
+    )
+
+    if splits < 2:
+        raise AssertionError(f"{name}: the combine self-tests need key splits, got {splits}")
+    want, want_lse = flash_attention_train_plain(q, k, v, mask, seed, DROPOUT)
+    o, m, l = flash_dropout_fwd_split_partials(q, k, v, mask, seed, DROPOUT, splits)
+    out, lse = combine_fwd_partials(o, m, l, q.dtype)
+    compare(f"{name}: forward split model ({splits} splits) vs plain, out", out, want, attention=True)
+    d_lse = (lse - want_lse).abs().max().item()
+    log(f"  {name}: forward split model lse max_abs {d_lse:.3e} (tol {LSE_TOL}) {'ok' if d_lse <= LSE_TOL else 'FAIL'}")
+    if not d_lse <= LSE_TOL:
+        raise AssertionError(f"{name}: the forward split model's lse disagrees with the plain version")
+    unweighted = (o.sum(0) / l.sum(0).clamp_min(1e-30)[..., None]).to(q.dtype)
+    for what, bad in (("without split 0's partial", combine_fwd_partials(o[1:], m[1:], l[1:], q.dtype)[0]),
+                      ("without the exp(m_i - m) weights", unweighted)):
+        ok, msg, _ = agreement(bad, want, attention=True)
+        log(f"  self-test, forward split model combined {what}: {msg} {'passed (FAIL)' if ok else 'rejected'}")
+        if ok:
+            raise AssertionError(f"the dropout forward check does not see a combine {what}")
 
 
 def check_bwd_deterministic(name, q, k, v, mask, seed, out, lse, go) -> None:
@@ -1360,6 +1465,32 @@ def check_dropout_splits(rn, g, seed) -> None:
         check_dropout_call(label, q, k, v, mask, seed, DROPOUT, go)
         out, lse = flash_dropout_fwd(q, k, v, mask, seed, DROPOUT)
         check_bwd_deterministic(label, q, k, v, mask, seed, out, lse, go)
+
+
+def check_dropout_fwd_splits(rn, g, seed) -> None:
+    """The forward where its split of the key tiles has edges: a split whose
+    tiles are all masked beside valid ones, a batch with no valid key, a
+    ragged last tile; held as ``check_dropout_call`` holds it, and repeated
+    bit for bit."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.kernels.flash_dropout import fwd_split_tiles, fwd_splits
+
+    b, h, lq, lk = 2, 1, 1024, 1100
+    splits = fwd_splits(b * h, lq, lk)
+    tiles = fwd_split_tiles(lk, splits)
+    mask = torch.rand(b, lk, generator=g, device="cuda") > 0.3
+    for t in tiles[1]:
+        mask[0, t * 64: (t + 1) * 64] = False
+    mask[1] = False
+    if not (splits > 2 and lk % 64 and bool(mask[0].any())):
+        raise AssertionError(f"dropout forward split case: {splits} splits {tiles}")
+    label = (f"forward B{b} H{h} q{lq} k{lk}, {splits} splits of tiles {[len(x) for x in tiles]}: split 1's "
+             "tiles all masked, batch 1 all masked")
+    log("flash_dropout forward split geometry (bf16, untimed)")
+    q, k, v, go = rn(b, h, lq, 256), rn(b, h, lk, 256), rn(b, h, lk, 256), rn(b, h, lq, 256)
+    check_dropout_call(label, q, k, v, mask, seed, DROPOUT, go)
+    check_fwd_deterministic(label, q, k, v, mask, seed)
 
 
 def check_dropout_index_wrap(rn, seed) -> None:
@@ -1833,7 +1964,9 @@ def main(argv=None) -> int:
     log(f"[2/8] build: {lib.name} in {build_s:.2f} s (set-up)")
     if msgs:
         (lib.parent / "nvcc.log").write_text("\n".join(msgs))
-        check_window_registers(ptxas_report(msgs))
+        regs = ptxas_report(msgs)
+        check_window_registers(regs)
+        check_dropout_fwd_registers(regs)
     else:
         log("  (library built before this run: no compiler report)")
 

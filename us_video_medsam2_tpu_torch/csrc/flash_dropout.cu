@@ -18,11 +18,30 @@
 // contribute exact zeros: memory banks early in a video hold mostly invalid
 // slots), deciding on the device.
 //
-// Forward (one block of 4 warps per 64-query tile, WMMA, f32 slabs in shared
-// memory): the Q tile stays in shared memory, 64-key K/V tiles stream through
-// it, online softmax in f32 whose normaliser sums the UNDROPPED
-// probabilities; only P·V sees the keep mask and the 1/(1 - rate) scale.
-// Writes out = O / max(l, 1e-30) and lse = m + log(max(l, 1e-30)).
+// Forward (fwd::kernel, grid (Lq/128, splits, BH), 8 warps of 16 query rows):
+// the Q tile stays in shared memory and 64-key K/V tiles arrive by cp.async
+// in two stages, the next in flight while the current one is computed.
+// S = Q.K^T and O += (P·keep).V run on mma.sync.m16n8k16 (bf16 operands,
+// f32 accumulators in registers, operands from ldmatrix). Each thread holds
+// rows g and g + 8 of its warp's 16 x 256 O, so the online softmax (running
+// max m and sum l in f32, natural-log units) stays in registers and P goes
+// from the S accumulators into the A operand of P.V without touching shared
+// memory. The normaliser sums the UNDROPPED probabilities; only P.V sees
+// keep / (1 - rate), the keep bit of each accumulator element hashed from
+// its own (query, key), and P·keep is rounded to bf16 as the JAX kernel
+// rounds it. At B·H = 3 one block per 128 queries gives 24 blocks for 132
+// SMs, so the key tiles are split across blocks too: tile t goes to split
+// t mod splits (the wrapper's fwd_split_tiles; fwd_splits picks the count
+// from the shape alone, one wave of the blocks an SM holds). Dealt out in
+// turn, the valid tiles of a memory bank (runs of whole 16-tile slots) fall
+// evenly on the splits wherever select_memories puts them. A block reads its
+// split's key mask once: one thread a tile packs the tile's 64 mask bytes
+// into a bit word in shared memory (a window of 256 tiles at a time), from
+// which it masks scores and skips tiles with no valid key. With one split
+// the block writes out = bf16(O / max(l, 1e-30)) and lse = m +
+// log(max(l, 1e-30)); otherwise each writes its O (f32) and (m, l), a split
+// that attended no tile m = -inf, and fwd::combine_kernel sums them in split
+// order (no atomics: two calls give the same bits).
 //
 // Backward: the TPU kernel walks its grid in order and carries dq across the
 // k-blocks in VMEM. Blocks on Hopper run in parallel and in no order, so the
@@ -61,11 +80,8 @@
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int D = 256;
 constexpr int LDQ = D + 8;  // bf16 row stride of q/k/v/dO tiles
-constexpr int LDO = D + 4;  // f32 row stride of an accumulator slab
 constexpr float MASKED = -1e30f;
 
 __device__ __forceinline__ unsigned keep_hash(unsigned idx, unsigned seed_mix) {
@@ -86,19 +102,6 @@ __device__ __forceinline__ float keep_factor(int bh, int qi, int key, int lq, in
   return keep_hash(idx, seed_mix) >= thr ? inv_keep : 0.f;
 }
 
-// rows [row0, row0 + rows) of a [*, D] bf16 matrix into a tile, zeros past `valid`
-template <int THREADS>
-__device__ __forceinline__ void load_rows(usm::bf16* dst, const usm::bf16* src, int row0, int rows,
-                                          int valid) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
-    const int r = i / CH, ch = i % CH;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < valid) v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + ch * 8);
-    *reinterpret_cast<uint4*>(dst + r * LDQ + ch * 8) = v;
-  }
-}
-
 // whether the batch row of the mask has any key to attend (the whole block agrees)
 __device__ __forceinline__ bool batch_has_valid(const unsigned char* mrow, int lk) {
   if (!mrow) return true;
@@ -115,162 +118,321 @@ __device__ __forceinline__ bool tile_has_valid(const unsigned char* mrow, int k0
   return __syncthreads_or(any) != 0;
 }
 
-// acc[16, D] (f32 slab, ld LDO) += A[16, K] (bf16, ld lda) . B[K, D] (bf16 rows, ld LDQ)
-template <int K>
-__device__ __forceinline__ void slab_mma_rows(float* acc, const usm::bf16* a, int lda,
-                                              const usm::bf16* b) {
-#pragma unroll 2
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    wmma::load_matrix_sync(c, acc + j * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, usm::bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, usm::bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, lda);
-      wmma::load_matrix_sync(fb, b + kk * 16 * LDQ + j * 16, LDQ);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(acc + j * 16, c, LDO, wmma::mem_row_major);
-  }
-}
-
-// out[16, N] (f32, ld ldo) = A[16, D] (bf16 rows, ld LDQ) . B[N, D]^T (bf16 rows, ld LDQ)
-template <int N>
-__device__ __forceinline__ void slab_mma_nt(float* out, int ldo, const usm::bf16* a,
-                                            const usm::bf16* b) {
-#pragma unroll
-  for (int j = 0; j < N / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll 4
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, usm::bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, usm::bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, LDQ);
-      wmma::load_matrix_sync(fb, b + j * 16 * LDQ + kk * 16, LDQ);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(out + j * 16, c, ldo, wmma::mem_row_major);
-  }
-}
-
 // ------------------------------------------------------------------ forward
 namespace fwd {
-constexpr int WARPS = 4;
-constexpr int BQ = 16 * WARPS;
-constexpr int BK = 64;
-constexpr int LDS = BK + 4;
-constexpr int LDP = BK + 8;
-constexpr size_t qs = 0;
-constexpr size_t ks = usm::align128(qs + sizeof(usm::bf16) * BQ * LDQ);
-constexpr size_t vs = usm::align128(ks + sizeof(usm::bf16) * BK * LDQ);
-constexpr size_t warp0 = usm::align128(vs + sizeof(usm::bf16) * BK * LDQ);
-constexpr size_t w_ss = 0;
-constexpr size_t w_ps = usm::align128(w_ss + sizeof(float) * 16 * LDS);
-constexpr size_t w_os = usm::align128(w_ps + sizeof(usm::bf16) * 16 * LDP);
-constexpr size_t w_stats = usm::align128(w_os + sizeof(float) * 16 * LDO);
-constexpr size_t warp_bytes = usm::align128(w_stats + sizeof(float) * 3 * 16);
-constexpr size_t bytes = warp0 + WARPS * warp_bytes;
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int BQ = 16 * WARPS;   // query rows of a block, 16 a warp
+constexpr int BK = 64;           // keys of a tile
+constexpr int WINDOW = THREADS;  // local tiles whose key masks one scan brings in, one a thread
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr size_t Q_BYTES = sizeof(usm::bf16) * BQ * LDQ;
+constexpr size_t TILE = sizeof(usm::bf16) * BK * LDQ;
+constexpr size_t BITS = Q_BYTES + 4 * TILE;  // after Q and K, V in two stages
+constexpr size_t BYTES = BITS + sizeof(unsigned long long) * WINDOW + sizeof(uint32_t) * WARPS;
+static_assert(BYTES <= 232448, "a block's shared memory");
 
-__global__ void __launch_bounds__(WARPS * 32) kernel(
-    const usm::bf16* __restrict__ q, const usm::bf16* __restrict__ k,
-    const usm::bf16* __restrict__ v, const unsigned char* __restrict__ mask,
-    usm::bf16* __restrict__ out, float* __restrict__ lse, int h, int lq, int lk, float scale,
-    unsigned seed_mix, unsigned thr, float inv_keep) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  usm::bf16* qsm = reinterpret_cast<usm::bf16*>(smem + qs);
-  usm::bf16* ksm = reinterpret_cast<usm::bf16*>(smem + ks);
-  usm::bf16* vsm = reinterpret_cast<usm::bf16*>(smem + vs);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned char* wb = smem + warp0 + warp * warp_bytes;
-  float* ss = reinterpret_cast<float*>(wb + w_ss);
-  usm::bf16* ps = reinterpret_cast<usm::bf16*>(wb + w_ps);
-  float* os = reinterpret_cast<float*>(wb + w_os);
-  float* m_run = reinterpret_cast<float*>(wb + w_stats);
-  float* l_run = m_run + 16;
-  float* alpha = m_run + 32;
+struct Args {
+  const usm::bf16 *q, *k, *v;
+  const unsigned char* mask;
+  usm::bf16* out;
+  float* lse;
+  float *o_part, *ml_part;  // each split's O [splits, bh, lq, D] and (m, l) [splits, bh, lq, 2]; null with one split
+  int bh, h, lq, lk, splits;
+  float scale, inv_keep;
+  unsigned seed_mix, thr;
+};
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const size_t off_q = (size_t)bh * lq * D;
-  const size_t off_k = (size_t)bh * lk * D;
-  const unsigned char* mrow = mask ? mask + (size_t)(bh / h) * lk : nullptr;
-  const bool has_valid = batch_has_valid(mrow, lk);
-
-  load_rows<WARPS * 32>(qsm, q + off_q, q0, BQ, lq);
-  for (int i = lane; i < 16 * LDO; i += 32) os[i] = 0.f;
-  if (lane < 16) {
-    m_run[lane] = -INFINITY;
-    l_run[lane] = 0.f;
+// rows [row0, row0 + ROWS) of a [*, D] head into a tile by cp.async, rows at or past `valid` zero-filled
+template <int ROWS>
+__device__ __forceinline__ void load_rows(usm::bf16* dst, const usm::bf16* src, int row0, int valid) {
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = row0 + r < valid;
+    usm::cp_async16(usm::smem_u32(dst + r * LDQ + c * 8), src + (size_t)(ok ? row0 + r : 0) * D + c * 8, ok);
   }
-  const usm::bf16* qw = qsm + warp * 16 * LDQ;
-  const int row = lane >> 1, half = lane & 1;  // lanes 2r, 2r+1: row r, 32 keys each
-  const int qi = q0 + warp * 16 + row;
+}
 
-  for (int k0 = 0; k0 < lk; k0 += BK) {
-    // a tile of masked keys adds exact zeros once the row has a valid key
-    if (has_valid && !tile_has_valid(mrow, k0, BK, lk)) continue;
-    __syncthreads();  // previous tile consumed, Q loaded on the first pass
-    load_rows<WARPS * 32>(ksm, k + off_k, k0, BK, lk);
-    load_rows<WARPS * 32>(vsm, v + off_k, k0, BK, lk);
+// Block (query tile, split, bh): queries [BQ·x, BQ·x + BQ) against the key
+// tiles t = i·splits + split, i = 0, 1, ... (its local tiles).
+__global__ void __launch_bounds__(THREADS, 1) kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  usm::bf16* qs = reinterpret_cast<usm::bf16*>(smem);
+  auto ks = [&](int st) { return reinterpret_cast<usm::bf16*>(smem + Q_BYTES + 2 * st * TILE); };
+  auto vs = [&](int st) { return reinterpret_cast<usm::bf16*>(smem + Q_BYTES + (2 * st + 1) * TILE); };
+  // the window's local tiles: bit c of keybits[i] = key c of the tile is attended (and < Lk);
+  // bit i of tilebits = keybits[i] != 0
+  unsigned long long* keybits = reinterpret_cast<unsigned long long*>(smem + BITS);
+  uint32_t* tilebits = reinterpret_cast<uint32_t*>(keybits + WINDOW);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  const int q0 = blockIdx.x * BQ, split = blockIdx.y, bh = blockIdx.z;
+  const usm::bf16* qh = a.q + (size_t)bh * a.lq * D;
+  const usm::bf16* kh = a.k + (size_t)bh * a.lk * D;
+  const usm::bf16* vh = a.v + (size_t)bh * a.lk * D;
+  const unsigned char* mrow = a.mask ? a.mask + (size_t)(bh / a.h) * a.lk : nullptr;
+  const int k_tiles = (a.lk + BK - 1) / BK;
+  const int n_local = split < k_tiles ? (k_tiles - 1 - split) / a.splits + 1 : 0;
+
+  load_rows<BQ>(qs, qh, q0, a.lq);  // in flight while the mask is scanned
+
+  // the key masks of local tiles [WINDOW w, WINDOW w + WINDOW): one thread a tile
+  int win = 0;
+  auto scan = [&](int w) {
+    __syncthreads();  // every thread is done with the previous window
+    const int i = w * WINDOW + threadIdx.x;
+    unsigned long long bits = 0;
+    if (i < n_local) {
+      const int k0 = (i * a.splits + split) * BK;
+      const int n = min(BK, a.lk - k0);
+      if (!mrow) {
+        bits = n == BK ? ~0ull : (1ull << n) - 1;
+      } else {
+#pragma unroll
+        for (int c = 0; c < BK; ++c)
+          if (c < n) bits |= (unsigned long long)(mrow[k0 + c] != 0) << c;
+      }
+    }
+    keybits[threadIdx.x] = bits;
+    const uint32_t word = __ballot_sync(0xffffffffu, bits != 0);
+    if (lane == 0) tilebits[warp] = word;
+    __syncthreads();
+    win = w;
+  };
+  scan(0);
+  // Tiles with no attended key are skipped when the batch has a valid key
+  // (they add exact zeros); a batch with none attends every tile. A valid key
+  // among the split's first window settles it; else the whole row is read.
+  bool skip = false;
+  if (mrow) {
+    uint32_t any = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) any |= tilebits[w];
+    skip = any != 0 || batch_has_valid(mrow, a.lk);
+  }
+  // the first local tile >= i to attend, or n_local; every thread takes the
+  // same steps on the same bits, so the block stays uniform
+  auto next = [&](int i) {
+    while (i < n_local) {
+      if (i / WINDOW != win) scan(i / WINDOW);
+      if (!skip) return i;
+      const int b = i % WINDOW;
+      const uint32_t word = tilebits[b >> 5] >> (b & 31);
+      if (word) return i + __ffs(word) - 1;
+      i += 32 - (b & 31);
+    }
+    return n_local;
+  };
+
+  int cur = next(0);
+  unsigned long long kb_cur = 0;
+  if (cur < n_local) {
+    kb_cur = keybits[cur % WINDOW];
+    const int k0 = (cur * a.splits + split) * BK;
+    load_rows<BK>(ks(0), kh, k0, a.lk);
+    load_rows<BK>(vs(0), vh, k0, a.lk);
+  }
+  usm::cp_commit();
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // the keep hash's element index (bh·Lq + q)·Lk + k (wrapping) of this
+  // thread's rows g, g + 8 at key 2·t4: key c of tile k0 adds k0 + c
+  unsigned row_idx[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    row_idx[r] = ((unsigned)bh * (unsigned)a.lq + (unsigned)(q0 + warp * 16 + g + 8 * r)) * (unsigned)a.lk +
+                 2u * t4;
+
+  const uint32_t q_addr = usm::smem_u32(qs + warp * 16 * LDQ + usm::a_off(lane, LDQ));
+  const int k_off = usm::b_off(lane, LDQ), v_off = usm::bt_off(lane, LDQ);
+
+  int stage = 0;
+  while (cur < n_local) {
+    const int nxt = next(cur + 1);
+    unsigned long long kb_nxt = 0;
+    if (nxt < n_local) {
+      kb_nxt = keybits[nxt % WINDOW];
+      const int k0 = (nxt * a.splits + split) * BK;
+      load_rows<BK>(ks(stage ^ 1), kh, k0, a.lk);
+      load_rows<BK>(vs(stage ^ 1), vh, k0, a.lk);
+    }
+    usm::cp_commit();
+    usm::cp_wait<1>();  // this tile (and Q) have landed; the next may be in flight
     __syncthreads();
 
-    slab_mma_nt<BK>(ss, LDS, qw, ksm);  // S = Q_w . K^T  [16, 64]
-    __syncwarp();
-    {
-      float* srow = ss + row * LDS + half * 32;
-      float tmax = -INFINITY;
-      for (int c = 0; c < 32; ++c) {
-        const int key = k0 + half * 32 + c;
-        float s;
-        if (key >= lk) s = -INFINITY;
-        else if (mrow && !mrow[key]) s = MASKED;
-        else s = srow[c] * scale;
-        srow[c] = s;
-        tmax = fmaxf(tmax, s);
+    // S = Q_w . K^T  [16, 64], and between its products the keep bits of
+    // this thread's elements (bit x = 16 r + 2 j + e: row g + 8 r, key
+    // j·8 + 2·t4 + e of the tile), so the hash's integer work overlaps them
+    // (at rate 0, thr = 0 keeps every element and inv_keep is 1)
+    const int k0 = (cur * a.splits + split) * BK;
+    constexpr int ELEMS = BK / 2, PER_KD = ELEMS / (D / 16);
+    uint32_t keep = 0;
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    const uint32_t k_addr = usm::smem_u32(ks(stage) + k_off);
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      uint32_t qa[4];
+      usm::ldsm_x4(q_addr + kd * 32, qa);
+#pragma unroll
+      for (int nj = 0; nj < BK / 16; ++nj) {
+        uint32_t b[4];
+        usm::ldsm_x4(k_addr + (nj * 16 * LDQ + kd * 16) * 2, b);
+        usm::mma(s[2 * nj], qa, b[0], b[1]);
+        usm::mma(s[2 * nj + 1], qa, b[2], b[3]);
       }
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      const float m_old = m_run[row];
-      const float m_new = fmaxf(m_old, tmax);
-      float psum = 0.f;
-      usm::bf16* prow = ps + row * LDP + half * 32;
-      for (int c = 0; c < 32; ++c) {
-        const float p = expf(srow[c] - m_new);
-        psum += p;  // the normaliser sums undropped probabilities
-        const int key = k0 + half * 32 + c;
-        prow[c] = __float2bfloat16(p * keep_factor(bh, qi, key, lq, lk, seed_mix, thr, inv_keep));
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      const float a = expf(m_old - m_new);
-      __syncwarp();
-      if (half == 0) {
-        alpha[row] = a;
-        m_run[row] = m_new;
-        l_run[row] = l_run[row] * a + psum;
+#pragma unroll
+      for (int x = kd * PER_KD; x < (kd + 1) * PER_KD; ++x) {
+        const unsigned idx = row_idx[x / (BK / 4)] + (unsigned)(k0 + (x % (BK / 4)) / 2 * 8 + x % 2);
+        keep |= (uint32_t)(keep_hash(idx, a.seed_mix) >= a.thr) << x;
       }
     }
-    __syncwarp();
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int r = i / D, c = i % D;
-      os[r * LDO + c] *= alpha[r];
-    }
-    __syncwarp();
-    slab_mma_rows<BK>(os, ps, LDP, vsm);  // O += P_dropped . V
-    __syncwarp();
-  }
 
-  for (int i = lane; i < 16 * (D / 2); i += 32) {
-    const int r = i / (D / 2), c2 = (i % (D / 2)) * 2;
-    const int qr = q0 + warp * 16 + r;
-    if (qr < lq) {
-      const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
-      *reinterpret_cast<__nv_bfloat162*>(out + off_q + (size_t)qr * D + c2) =
-          __floats2bfloat162_rn(os[r * LDO + c2] * inv, os[r * LDO + c2 + 1] * inv);
+    // scale and mask (natural-log units): rows g (s[.][0..1]) and g + 8 (s[.][2..3])
+    const unsigned long long kb = kb_cur >> (2 * t4);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool on = (kb >> (j * 8 + e)) & 1ull;
+        const bool in = k0 + j * 8 + 2 * t4 + e < a.lk;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& x = s[j][2 * r + e];
+          x = on ? x * a.scale : (in ? MASKED : -INFINITY);
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+    }
+    // online softmax: a processed tile holds a key < Lk, so m_new is finite
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f((m[r] - m_new) * LOG2E);
+      m[r] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = exp2f((s[j][c] - m[c >> 1]) * LOG2E);
+        rs[c >> 1] += p;  // the normaliser sums the undropped probabilities
+        s[j][c] = p;
+      }
+    }
+    // only P·V sees keep / (1 - rate)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          s[j][2 * r + e] *= (keep >> (r * (BK / 4) + 2 * j + e)) & 1u ? a.inv_keep : 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];  // per-thread partial sums
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += (P·keep) . V, the bf16 A operand straight from the S accumulators
+    const uint32_t v_addr = usm::smem_u32(vs(stage) + v_off);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = usm::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = usm::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = usm::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = usm::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t b[4];
+        usm::ldsm_x4_t(v_addr + (kk * 16 * LDQ + dn * 16) * 2, b);
+        usm::mma(o[2 * dn], pa, b[0], b[1]);
+        usm::mma(o[2 * dn + 1], pa, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+    stage ^= 1;
+    cur = nxt;
+    kb_cur = kb_nxt;
+  }
+  usm::cp_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= a.lq) continue;
+    const size_t orow = (size_t)bh * a.lq + row;
+    if (a.o_part) {  // a split with no tile attended writes O 0, m -inf, l 0
+      const size_t prow = (size_t)split * a.bh * a.lq + orow;
+      float* dst = a.o_part + prow * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(dst + j * 8) = make_float2(o[j][2 * r], o[j][2 * r + 1]);
+      if (t4 == 0) *reinterpret_cast<float2*>(a.ml_part + prow * 2) = make_float2(m[r], l[r]);
+    } else {
+      const float ls = fmaxf(l[r], 1e-30f), inv = 1.f / ls;
+      usm::bf16* dst = a.out + orow * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+            __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+      if (t4 == 0) a.lse[orow] = m[r] + logf(ls);
     }
   }
-  if (lane < 16 && q0 + warp * 16 + lane < lq)
-    lse[(size_t)bh * lq + q0 + warp * 16 + lane] = m_run[lane] + logf(fmaxf(l_run[lane], 1e-30f));
+}
+
+// out and lse from the splits' partials, summed in split order: m = max_i m_i,
+// w_i = exp(m_i - m) (0 for a split that attended no tile, m_i = -inf),
+// out = bf16(sum_i w_i O_i / max(L, 1e-30)), lse = m + log(max(L, 1e-30)),
+// L = sum_i w_i l_i. 64 threads a row (4 columns each), 4 rows a block.
+__global__ void __launch_bounds__(256) combine_kernel(const float* __restrict__ o_part,
+                                                      const float* __restrict__ ml_part,
+                                                      usm::bf16* __restrict__ out, float* __restrict__ lse,
+                                                      int splits, int rows) {
+  const int row = blockIdx.x * 4 + (threadIdx.x >> 6);
+  if (row >= rows) return;
+  const int c = (threadIdx.x & 63) * 4;
+  float top = -INFINITY;
+  for (int i = 0; i < splits; ++i) top = fmaxf(top, ml_part[((size_t)i * rows + row) * 2]);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float sum = 0.f;
+  for (int i = 0; i < splits; ++i) {
+    const float2 ml = *reinterpret_cast<const float2*>(ml_part + ((size_t)i * rows + row) * 2);
+    if (ml.x == -INFINITY) continue;
+    const float w = expf(ml.x - top);
+    const float4 oi = *reinterpret_cast<const float4*>(o_part + ((size_t)i * rows + row) * D + c);
+    acc.x += w * oi.x;
+    acc.y += w * oi.y;
+    acc.z += w * oi.z;
+    acc.w += w * oi.w;
+    sum += w * ml.y;
+  }
+  const float ls = fmaxf(sum, 1e-30f), inv = 1.f / ls;
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * D + c);
+  dst[0] = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
+  dst[1] = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
+  if (c == 0) lse[row] = top + logf(ls);
 }
 }  // namespace fwd
 
@@ -671,20 +833,38 @@ cudaError_t sum_splits(const void* part, void* out, int splits, size_t n, float 
 
 }  // namespace
 
-extern "C" int usm_flash_dropout_fwd_bf16(const void* q, const void* k, const void* v,
-                                          const void* mask, void* out, void* lse, int bh, int h,
-                                          int lq, int lk, int d, float scale, unsigned seed_mix,
-                                          unsigned thr, float inv_keep, void* stream) {
-  if (bh <= 0 || lq <= 0) return cudaSuccess;
-  if (lk <= 0 || h <= 0 || d != D) return cudaErrorInvalidValue;
-  cudaError_t e = usm::allow_smem(fwd::kernel, fwd::bytes);
+// Blocks of the forward kernel that one SM holds at once (fwd_splits sizes
+// its grid to one wave of them).
+extern "C" int usm_flash_dropout_fwd_blocks_per_sm(int* blocks) {
+  cudaError_t e = usm::allow_smem(fwd::kernel, fwd::BYTES);
   if (e != cudaSuccess) return e;
-  dim3 grid((lq + fwd::BQ - 1) / fwd::BQ, bh);
-  fwd::kernel<<<grid, fwd::WARPS * 32, fwd::bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const usm::bf16*>(q), static_cast<const usm::bf16*>(k),
-      static_cast<const usm::bf16*>(v), static_cast<const unsigned char*>(mask),
-      static_cast<usm::bf16*>(out), static_cast<float*>(lse), h, lq, lk, scale, seed_mix, thr,
-      inv_keep);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fwd::kernel, fwd::THREADS, fwd::BYTES);
+}
+
+// scratch: o_part [splits, bh, lq, 256] then ml_part [splits, bh, lq, 2], f32
+// (the wrapper's _fwd_scratch_floats); unused, and may be null, with one split.
+extern "C" int usm_flash_dropout_fwd_bf16(const void* q, const void* k, const void* v,
+                                          const void* mask, void* out, void* lse, void* scratch, int bh,
+                                          int h, int lq, int lk, int d, int splits, float scale,
+                                          unsigned seed_mix, unsigned thr, float inv_keep, void* stream) {
+  using namespace fwd;
+  if (bh <= 0 || lq <= 0) return cudaSuccess;
+  if (lk <= 0 || h <= 0 || d != D || splits <= 0 || splits > 65535 || bh > 65535) return cudaErrorInvalidValue;
+  if (splits > 1 && !scratch) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = usm::allow_smem(kernel, BYTES);
+  if (e != cudaSuccess) return e;
+  float* o_part = splits > 1 ? static_cast<float*>(scratch) : nullptr;
+  float* ml_part = splits > 1 ? o_part + (size_t)splits * bh * lq * D : nullptr;
+  Args a{static_cast<const usm::bf16*>(q), static_cast<const usm::bf16*>(k), static_cast<const usm::bf16*>(v),
+         static_cast<const unsigned char*>(mask), static_cast<usm::bf16*>(out), static_cast<float*>(lse),
+         o_part, ml_part, bh, h, lq, lk, splits, scale, inv_keep, seed_mix, thr};
+  kernel<<<dim3((lq + BQ - 1) / BQ, splits, bh), THREADS, BYTES, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const int rows = bh * lq;
+  combine_kernel<<<(rows + 3) / 4, 256, 0, s>>>(o_part, ml_part, static_cast<usm::bf16*>(out),
+                                                 static_cast<float*>(lse), splits, rows);
   return cudaGetLastError();
 }
 

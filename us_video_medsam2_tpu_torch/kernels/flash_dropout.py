@@ -15,18 +15,23 @@ version, both kernels and the JAX package, for any tiling.
 
 On the H100 both kernels are bound by operations (forward 4·Lq·Lk·D flop,
 backward 10·Lq·Lk·D, over the unmasked keys). ``csrc/flash_dropout.cu``
-skips key tiles that are all masked when the batch has a valid key. The
-forward keeps its score, probability and keep tiles in shared memory and runs
-its products on WMMA. The backward runs dk/dv blocks over 64 keys and dq
-blocks over 64 queries in one launch (blocks run in no order, so nothing is
-carried across them), on ``mma.sync`` with the accumulators in registers and
-the streamed tiles in two cp.async stages. ``bwd_splits`` also splits the
-queries of the dk/dv blocks and the keys of the dq blocks, from the shape
-alone, to fill the card's 132 SMs and to keep the dq blocks no longer than
-the dk/dv blocks; each split writes f32 partials that a third kernel sums in
-split order and rounds once, so the gradients are the same on every run.
-``flash_dropout_bwd_split_plain`` is the plain model of that split, for the
-tests.
+skips key tiles that are all masked when the batch has a valid key. Both
+run on ``mma.sync`` with the accumulators in registers and the streamed
+tiles in two cp.async stages. The forward's blocks take 128 queries and
+split the key tiles too: tile t goes to split t mod S (``fwd_split_tiles``),
+S from the shape alone (``fwd_splits``: one wave of the blocks an SM
+holds), so the valid tiles of a memory bank fall evenly on the splits
+wherever they lie; each split writes its O, running max and sum in f32 and
+a second kernel combines them in split order into out and lse. The
+backward runs dk/dv blocks over 64 keys and dq blocks over 64 queries in
+one launch (blocks run in no order, so nothing is carried across them).
+``bwd_splits`` also splits the queries of the dk/dv blocks and the keys of
+the dq blocks, from the shape alone, to fill the card's 132 SMs and to keep
+the dq blocks no longer than the dk/dv blocks; each split writes f32
+partials that a third kernel sums in split order and rounds once. So both
+passes give the same bits on every run. ``flash_dropout_fwd_split_plain``
+and ``flash_dropout_bwd_split_plain`` are the plain models of the splits,
+for the tests.
 
 The JAX package's remat form (``FLASH_RESID``, ``_flash_apply``) exists
 because ``jax.checkpoint`` re-runs a custom_vjp's forward to rebuild its
@@ -42,8 +47,12 @@ from us_video_medsam2_tpu_torch.kernels import _lib
 from us_video_medsam2_tpu_torch.kernels.flash_attention import split_ranges
 
 SUPPORTED_D = (256,)
-BLOCK = 64  # keys or queries per tile of the backward kernels
+BLOCK = 64  # keys of a tile of either pass, or queries of a backward tile
+FWD_BLOCK_Q = 128  # queries of a forward block (8 warps of 16)
 TARGET_BLOCKS = 132  # the H100's SMs; one backward block fills an SM (up to 217 KB of shared memory)
+# forward blocks an SM holds (205 KB of shared memory, 256 threads); chip_smoke.py
+# holds this against cudaOccupancyMaxActiveBlocksPerMultiprocessor
+FWD_BLOCKS_PER_SM = 1
 NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
 _GOLD = 0x9E3779B9
@@ -95,6 +104,84 @@ def flash_attention_train_plain(q, k, v, key_mask, seed: int, rate: float):
         p = torch.where(keep, p / (1.0 - rate), torch.zeros_like(p))
     out = torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
     return out, lse
+
+
+def fwd_splits(bh: int, lq: int, lk: int) -> int:
+    """Key splits of the forward for B·H = ``bh``, from the shape alone: at
+    most as many as let the (query tile, split, batch·head) blocks run in one
+    wave (TARGET_BLOCKS x FWD_BLOCKS_PER_SM), at most one a key tile, and of
+    those the fewest whose longest split is as short (more would only add
+    partials for the combine to read)."""
+    q_tiles, k_tiles = -(-lq // FWD_BLOCK_Q), -(-lk // BLOCK)
+    most = max(1, min(k_tiles, TARGET_BLOCKS * FWD_BLOCKS_PER_SM // (bh * q_tiles)))
+    return -(-k_tiles // -(-k_tiles // most))
+
+
+def fwd_split_tiles(lk: int, splits: int) -> list[list[int]]:
+    """The key tiles of each forward split: tile t to split t mod ``splits``.
+    A memory bank's valid keys lie in runs of whole slots, so dealt out in
+    turn its valid tiles fall on the splits within one of each other wherever
+    the runs lie; the assignment is the same on every call."""
+    return [list(range(s, -(-lk // BLOCK), splits)) for s in range(splits)]
+
+
+def fwd_attended_keys(key_mask, b: int, lk: int, splits: int, device="cpu") -> torch.Tensor:
+    """[splits, B, Lk] bool: the keys each split's blocks score — the keys of
+    its tiles, less the tiles with no valid key where the batch has a valid
+    key (a batch with none attends every tile)."""
+    valid = torch.ones(b, lk, dtype=torch.bool, device=device) if key_mask is None else key_mask.to(device)
+    k_tiles = -(-lk // BLOCK)
+    tile_valid = torch.nn.functional.pad(valid, (0, k_tiles * BLOCK - lk)).reshape(b, k_tiles, BLOCK).any(-1)
+    take = tile_valid | ~valid.any(-1, keepdim=True)
+    split_of = torch.zeros(k_tiles, dtype=torch.long, device=device)
+    for s, tiles in enumerate(fwd_split_tiles(lk, splits)):
+        split_of[tiles] = s
+    ours = split_of[None, None, :] == torch.arange(splits, device=device)[:, None, None]
+    return (ours & take[None]).repeat_interleave(BLOCK, -1)[..., :lk]
+
+
+def flash_dropout_fwd_split_partials(q, k, v, key_mask, seed: int, rate: float, splits: int):
+    """Each forward split's O_i [splits, B, H, Lq, D] (f32, P·keep/(1 − rate)
+    rounded to v's dtype as the kernel rounds it), running max m_i and
+    undropped sum l_i [splits, B, H, Lq] in f32, natural-log units, over the
+    keys ``fwd_attended_keys`` gives it. A split that attends no key has O 0,
+    m −inf, l 0."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (d**-0.5)
+    if key_mask is not None:
+        s = torch.where(key_mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    keepf = torch.ones_like(s)
+    if rate > 0.0:
+        keep = keep_mask(b * h, lq, lk, seed, rate, q.device).reshape(b, h, lq, lk)
+        keepf = torch.where(keep, torch.full_like(s, 1.0 / (1.0 - rate)), torch.zeros_like(s))
+    os, ms, ls = [], [], []
+    for att in fwd_attended_keys(key_mask, b, lk, splits, q.device):
+        si = torch.where(att[:, None, None, :], s, torch.full_like(s, float("-inf")))
+        m = si.amax(-1)
+        p = torch.exp(si - torch.where(m == float("-inf"), torch.zeros_like(m), m)[..., None])
+        os.append(torch.matmul((p * keepf).to(v.dtype).float(), v.float()))
+        ms.append(m)
+        ls.append(p.sum(-1))
+    return torch.stack(os), torch.stack(ms), torch.stack(ls)
+
+
+def combine_fwd_partials(o, m, l, dtype):
+    """The forward's combine kernel: (out, lse) from the splits' (O_i, m_i,
+    l_i), summed in split order: w_i = exp(m_i − max_i m_i), 0 for a split
+    with m_i = −inf; out = Σ w_i O_i / max(Σ w_i l_i, 1e-30) in ``dtype``,
+    lse = max_i m_i + log(max(Σ w_i l_i, 1e-30))."""
+    top = m.amax(0)
+    w = torch.where(m == float("-inf"), torch.zeros_like(m), torch.exp(m - top))
+    total = sum_in_order(w * l).clamp_min(1e-30)
+    return (sum_in_order(w[..., None] * o) / total[..., None]).to(dtype), top + torch.log(total)
+
+
+def flash_dropout_fwd_split_plain(q, k, v, key_mask, seed: int, rate: float, splits: int):
+    """Plain model of the forward kernels' split over key tiles and their
+    combine (tests only): (out, lse [B, H, Lq] f32)."""
+    return combine_fwd_partials(*flash_dropout_fwd_split_partials(q, k, v, key_mask, seed, rate, splits),
+                                q.dtype)
 
 
 def bwd_splits(bh: int, lq: int, lk: int) -> tuple[int, int]:
@@ -187,22 +274,45 @@ def _hash_args(seed: int, rate: float, d: int):
             float(1.0 / (1.0 - rate)))
 
 
+def _fwd_scratch_floats(bh: int, lq: int, d: int, splits: int) -> int:
+    """f32 scratch of the forward entry point: each split's O [splits, bh,
+    lq, d], then its (m, l) [splits, bh, lq, 2]; none with one split."""
+    return 0 if splits == 1 else splits * bh * lq * (d + 2)
+
+
 def flash_dropout_fwd(q, k, v, key_mask, seed: int, rate: float):
-    """Forward kernel: (out bf16, lse [B, H, Lq] f32). CUDA bf16 only."""
+    """Forward kernels: (out bf16, lse [B, H, Lq] f32). CUDA bf16 only; one
+    count per call, whatever the number of kernels (the split blocks, and
+    their combine where ``fwd_splits`` gives more than one)."""
     global _fwd_fn
     key_mask = _check(q, k, v, key_mask, "flash_dropout_fwd")
     b, h, lq, d = q.shape
+    lk = k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    splits = fwd_splits(b * h, lq, lk)
+    n = _fwd_scratch_floats(b * h, lq, d, splits)
+    scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     if _fwd_fn is None:
         _fwd_fn = _lib.fn("usm_flash_dropout_fwd_bf16",
-                          [_lib.P] * 6 + [_lib.I] * 5 + [_lib.F, _lib.U, _lib.U, _lib.F, _lib.P])
+                          [_lib.P] * 7 + [_lib.I] * 6 + [_lib.F, _lib.U, _lib.U, _lib.F, _lib.P])
     rc = _fwd_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if key_mask is None else key_mask.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), b * h, h, lq, k.shape[2], d, *_hash_args(seed, rate, d),
-                 _lib.stream_ptr(q))
+                 out.data_ptr(), lse.data_ptr(), None if scratch is None else scratch.data_ptr(), b * h, h, lq,
+                 lk, d, splits, *_hash_args(seed, rate, d), _lib.stream_ptr(q))
     _lib.check(rc, "flash_dropout_fwd")
     flash_dropout_fwd.launches += 1
     return out, lse
+
+
+def fwd_blocks_per_sm() -> int:
+    """How many forward blocks one SM of the card holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); needs the card."""
+    import ctypes
+
+    n = ctypes.c_int(0)
+    fn = _lib.fn("usm_flash_dropout_fwd_blocks_per_sm", [ctypes.POINTER(ctypes.c_int)])
+    _lib.check(fn(ctypes.byref(n)), "flash_dropout_fwd occupancy")
+    return n.value
 
 
 def _bwd_scratch_floats(bh: int, lq: int, lk: int, d: int, q_splits: int, k_splits: int) -> int:
