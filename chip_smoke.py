@@ -13,9 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    D, with and without the hidden split, and the combine) and the two
    window-attention sources (both head-dim instantiations; a spill fails the
    run); every (head dim, key tiles) instantiation of the window-attention
-   kernel must be there, its registers printed beside those ``window_tiles``'
-   occupancy table assumes (phase 3 holds the table's blocks an SM against
-   the card's);
+   kernel and of its qkv variant must be there, its registers printed beside
+   those ``window_tiles``' and ``plan_for``'s occupancy tables assume (phase
+   3 holds the tables' blocks an SM against the card's);
 3. each kernel against its plain PyTorch version at every shape the main path
    gives it, in bf16: max abs / rel error against the stated tolerance, and
    times (CUDA events over runs of back-to-back launches) of the kernel, the
@@ -64,14 +64,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``F.layer_norm`` and SDPA's forward and backward beside them, also print
    their device time per call from
    torch.profiler's kernel events (the CUDA-event time of back-to-back
-   calls is the host's at these sizes). The two kernels of the fused
+   calls is the host's at these sizes); so do the flash kernel (beside
+   SDPA's) and CXBlock. The two kernels of the fused
    configuration are held at every shape the main path gives them (CXBlock
    at [1, 32, 32, 256] with layer scale 1 +- 0.1, on out and on out - x;
    the qkv window attention at the nine windowed blocks' geometries), again
    untimed at the training shapes and at B 2 edge shapes, with a check that
    must reject the plain CXBlock without its pwconv1 bias and one that must
    reject pad tokens whose q, k, v are 0 instead of the bias; their
-   gradients as those of the four kernels above. The flash kernel splits the
+   gradients as those of the four kernels above. The qkv kernel cuts its
+   work by ``plan_for`` (windows a group, blocks a thread-block cluster):
+   at every plan it picks, its shared memory and blocks an SM are
+   the card's and its clusters at once give the card's waves
+   (``cudaOccupancyMaxActiveClusters``); two calls give the same bits at
+   every geometry; at the ws-14 blocks of t512 and S the plain model of the
+   plan's split agrees with the plain version and the check must reject it
+   with one cluster rank's K and V share left out; the unfused pair
+   (``F.linear`` into the bias map, then the window-attention kernel) is
+   timed beside it on the device, for information. The flash kernel splits the
    keys across blocks (``flash_splits``): it is held again, untimed, where
    the last split is ragged, where a split holds only keys past Lk, where a
    split holds only masked keys (beside a batch with none valid) and where
@@ -340,6 +350,28 @@ def check_window_registers(regs) -> None:
     if got.keys() != REGISTERS.keys():
         raise AssertionError(f"window_attention.cu: instantiations {sorted(got)} differ from "
                              f"window_attention.REGISTERS' {sorted(REGISTERS)}")
+
+
+def check_qkv_registers(regs) -> None:
+    """Every (head dim, key tiles) instantiation of the qkv window-attention
+    kernel was compiled; its registers are printed beside those of
+    qkv_window_attention.REGISTERS, the table plan_for's occupancy model
+    reads (phase 3 holds the model's blocks an SM and clusters at once against
+    the card's at every plan it picks)."""
+    import re
+
+    from us_video_medsam2_tpu_torch.kernels.qkv_window_attention import REGISTERS
+
+    got = {}
+    for func, n in regs.get("qkv_window_attention.cu", {}).items():
+        m = re.search(r"qkv_window_attention_kernelILi(\d+)ELi(\d+)E", func)
+        if m:
+            got[(int(m.group(1)), int(m.group(2)))] = n
+    log(f"  qkv_window_attention.cu: registers by (hd, key tiles) {dict(sorted(got.items()))}; "
+        f"plan_for's table {dict(sorted(REGISTERS.items()))}")
+    if got.keys() != REGISTERS.keys():
+        raise AssertionError(f"qkv_window_attention.cu: instantiations {sorted(got)} differ from "
+                             f"qkv_window_attention.REGISTERS' {sorted(REGISTERS)}")
 
 
 def sm_clock_hz() -> float:
@@ -613,7 +645,9 @@ def check_kernels(g) -> dict:
         am = None if m is None else m[:, None, None, :]
         r.add([lq, lk, 256, m is not None], cnt, err, time_ms(lambda: flash_attention(q, k, v, m)),
               time_ms(lambda: flash_attention_plain(q, k, v, m)), bnd, by,
-              time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)))
+              time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)),
+              (device_ms(lambda: flash_attention(q, k, v, m), by_kernel=True),
+               device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))))
 
     # once more, untimed, at shapes off the main path that the wrappers take:
     # ragged last tiles, batch and heads above 1, a batch whose keys are all masked
@@ -892,14 +926,49 @@ def check_fused_kernels(g, rows) -> None:
     import torch.nn.functional as F
 
     from us_video_medsam2_tpu_torch.kernels.cxblock import cxblock, cxblock_plain
+    from us_video_medsam2_tpu_torch.kernels import qkv_window_attention as qwa
     from us_video_medsam2_tpu_torch.kernels.qkv_window_attention import (
         qkv_window_attention,
         qkv_window_attention_plain,
+        qkv_window_attention_split_plain,
     )
-    from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention_plain
+    from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
 
     def rn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+    held = set()
+
+    def hold_plan(b, hp, wp, ws, nh, hd, pool, cin) -> None:
+        """The plan plan_for picks here: its shared memory, blocks an SM and
+        clusters at once held against the card's occupancy API (once a
+        plan). The clusters table may differ from the card only where the
+        plan's waves stay the same (GPC sizes can differ between cards)."""
+        plan = qwa.plan_for(b, hp, wp, ws, nh, hd, pool, cin)
+        if (hd, ws, pool, plan) in held:
+            return
+        held.add((hd, ws, pool, plan))
+        smem, blocks, clusters = qwa.card_occupancy(hd, ws, pool, plan)
+        model = (qwa.smem_bytes(hd, ws, pool, plan), qwa.blocks_per_sm(hd, ws, pool, plan),
+                 qwa.clusters_at_once(hd, ws, pool, plan))
+        kt = qwa.key_tiles(ws)
+        tasks = -(-b * (hp // ws) * (wp // ws) // plan.g) * nh
+        waves = (-(-tasks // clusters) if clusters else None, -(-tasks // model[2]))
+        log(f"    plan {tuple(plan)} (G, C) of instantiation (hd {hd}, key tiles {kt}): {smem} B shared "
+            f"memory (model {model[0]}), {qwa.REGISTERS[(hd, kt)]} registers a thread (table), {blocks} blocks "
+            f"an SM (model {model[1]}), {clusters} clusters of {plan.c} at once (table {model[2]}): "
+            f"{tasks} clusters in {waves[0]} waves")
+        if (smem, blocks) != model[:2] or waves[0] != waves[1]:
+            raise AssertionError(f"qkv_window_attention plan {plan}: the card's occupancy {smem, blocks, clusters} "
+                                 f"is not the model's {model}")
+
+    def same_bits(name, call) -> None:
+        """Two calls on the same inputs give the same bits."""
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        log(f"  {name}: two calls bit-identical {torch.equal(a, b)}")
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: two calls on the same inputs differ")
 
     def hold_cxblock(name, args) -> float:
         """out and out − x against the plain version; max abs error."""
@@ -927,7 +996,7 @@ def check_fused_kernels(g, rows) -> None:
     bnd, by = (tb, "bytes") if tb >= tf else (tf, "operations")
     # one memory encoding of each model: both run the same memory encoder
     r.add([1, CX_SIDE, CX_SIDE, c], 2 * PER_MEMORY_ENCODING["cxblock"], err, time_ms(lambda: cxblock(*args)),
-          time_ms(lambda: cxblock_plain(*args)), bnd, by)
+          time_ms(lambda: cxblock_plain(*args)), bnd, by, dev=(device_ms(lambda: cxblock(*args)), None))
     log(f"  {(CX_SIDE // 8) ** 2} blocks of 8x8 tokens at B 1 on "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs; each block reads W1 and W2 "
         f"({2 * 2 * c * f / 1e6:.2f} MB) from L2")
@@ -945,9 +1014,12 @@ def check_fused_kernels(g, rows) -> None:
             a = qkv_args(rn, TRAIN_T, hp, nh, cin, real)
             r.check(compare(f"B{TRAIN_T} {geo} training", qkv_window_attention(*a, ws, nh, pool),
                             qkv_window_attention_plain(*a, ws, nh, pool), attention=True))
+            hold_plan(TRAIN_T, hp, hp, ws, nh, hd, pool, cin)
         a = qkv_args(rn, 1, hp, nh, cin, real, hd)
         want = qkv_window_attention_plain(*a, ws, nh, pool)
         err = compare(geo, qkv_window_attention(*a, ws, nh, pool), want, attention=True)
+        same_bits(geo, lambda: qkv_window_attention(*a, ws, nh, pool))
+        hold_plan(1, hp, hp, ws, nh, hd, pool, cin)
         if (hp, ws, nh, pool, hd) == (42, 14, 4, False, HD):
             # the check must reject a kernel whose pad tokens' q, k, v are 0, not the bias
             y, w, b = a
@@ -958,6 +1030,20 @@ def check_fused_kernels(g, rows) -> None:
             log(f"  self-test, pad tokens' qkv 0: {msg} {'passed (FAIL)' if ok else 'rejected'}")
             if ok:
                 raise AssertionError("the qkv window-attention check does not see zero pad tokens")
+        if ws == 14 and not pool and cnt:
+            # the plain model of the plan's split agrees; the check must reject
+            # it with one cluster rank's K and V share left out
+            plan = qwa.plan_for(1, hp, hp, ws, nh, hd, pool, cin)
+            compare(f"{geo} plain split model, plan {tuple(plan)}",
+                    qkv_window_attention_split_plain(*a, ws, nh, pool, plan), want, attention=True)
+            if plan.c < 2:
+                raise AssertionError(f"{geo}: plan {plan} has no cluster rank to leave out")
+            dropped = qkv_window_attention_split_plain(*a, ws, nh, pool, plan, drop_rank=1)
+            ok, msg, _ = agreement(dropped, want, attention=True)
+            log(f"  self-test, split model without rank 1's K and V share: {msg} "
+                f"{'passed (FAIL)' if ok else 'rejected'}")
+            if ok:
+                raise AssertionError("the qkv window-attention check does not see a dropped cluster share")
         nwin = (hp // ws) ** 2
         wso = ws // 2 if pool else ws
         out_elems = nwin * wso * wso * nh * hd
@@ -969,8 +1055,14 @@ def check_fused_kernels(g, rows) -> None:
         r.add([hp, hp, ws, nh, hd, pool, cin], cnt, err, time_ms(lambda: qkv_window_attention(*a, ws, nh, pool)),
               time_ms(lambda: qkv_window_attention_plain(*a, ws, nh, pool)), bnd, by,
               dev=(device_ms(lambda: qkv_window_attention(*a, ws, nh, pool)), None))
-        log(f"      {nwin * nh} blocks; the window tokens are read {3 * nh} times: "
-            f"{3 * nh * 2 * a[0].numel() / 1e6:.2f} MB from L2 against the map's {2 * a[0].numel() / 1e6:.2f} MB")
+        # for information: the unfused pair at the same shape (the bias map from
+        # one cuBLAS product, then the window-attention kernel without the cut)
+        y, w, b = a
+        bb = b.to(y.dtype)
+        unfused = device_ms(lambda: window_attention(F.linear(y, w, bb), ws, nh, pool))
+        r.shapes[-1]["unfused_device_ms"] = unfused
+        log(f"      unfused pair (F.linear bias map + window_attention kernel): {unfused:.4f} ms a call on the "
+            f"device, against {r.shapes[-1]['device_ms']:.4f}")
     log("  library: none (no one PyTorch call projects, gathers the windows, pools q and attends)")
 
     log("fused kernels at edge shapes (bf16, untimed)")
@@ -981,9 +1073,11 @@ def check_fused_kernels(g, rows) -> None:
                                                 ((2, 28, 28), 14, 2, True, 192, HD_VIT)):
         y, w, b = qkv_args(rn, bsz, max(hp, wp), nh, cin, max(hp, wp), hd)
         y = y[:, :hp, :wp].contiguous()
-        compare(f"qkv_window_attention B{bsz} {hp}x{wp} ws{ws} nh{nh} hd{hd} pool={pool} Cin{cin}",
-                qkv_window_attention(y, w, b, ws, nh, pool), qkv_window_attention_plain(y, w, b, ws, nh, pool),
+        name = f"qkv_window_attention B{bsz} {hp}x{wp} ws{ws} nh{nh} hd{hd} pool={pool} Cin{cin}"
+        compare(name, qkv_window_attention(y, w, b, ws, nh, pool), qkv_window_attention_plain(y, w, b, ws, nh, pool),
                 attention=True)
+        same_bits(name, lambda: qkv_window_attention(y, w, b, ws, nh, pool))
+        hold_plan(bsz, hp, wp, ws, nh, hd, pool, cin)
 
 
 def v1_args(rn, b, hp, c, nh, co, real):
@@ -1966,6 +2060,7 @@ def main(argv=None) -> int:
         (lib.parent / "nvcc.log").write_text("\n".join(msgs))
         regs = ptxas_report(msgs)
         check_window_registers(regs)
+        check_qkv_registers(regs)
         check_dropout_fwd_registers(regs)
     else:
         log("  (library built before this run: no compiler report)")

@@ -1,6 +1,7 @@
-// Warp-level building blocks of the flash kernels (sm_90a): cp.async copies
-// into shared memory, ldmatrix fragment loads, and mma.sync.m16n8k16 with
-// bf16 operands and f32 accumulators in registers.
+// Warp-level building blocks of the flash and window kernels (sm_90a):
+// cp.async copies into shared memory, ldmatrix fragment loads,
+// mma.sync.m16n8k16 with bf16 operands and f32 accumulators in registers, and
+// the thread-block cluster barrier and distributed shared-memory loads.
 //
 // Fragment layout of one m16n8 accumulator c[4] (lane = 4 * g + t4): c[0],
 // c[1] hold row g, columns 2 * t4 and 2 * t4 + 1; c[2], c[3] the same
@@ -57,6 +58,34 @@ __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Thread-block clusters (sm_90): the block's rank in its cluster, the
+// cluster barrier split into its arrive (release) and wait (acquire) halves,
+// and 16-byte stores into a peer block's shared memory (distributed shared
+// memory), valid between two cluster barriers that every block of the
+// cluster passes. Every thread of the block calls the barrier halves.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the shared::cluster address of the shared::cta address `addr` in block `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z),
+               "r"(v.w)
+               : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

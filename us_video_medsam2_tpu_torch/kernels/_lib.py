@@ -134,6 +134,28 @@ def stream_ptr(t) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+# An H100 SM (sm_90): what a kernel's blocks an SM are computed from
+SMS = 132
+SMEM_PER_SM = 233472  # bytes, of which 1 KB a block is the runtime's
+SMEM_PER_BLOCK = 232448
+REGISTERS_PER_SM = 65536
+THREADS_PER_SM = 2048
+BLOCKS_PER_SM_MAX = 32
+
+
+def blocks_per_sm(registers: int, smem: int, threads: int) -> int:
+    """How many blocks of a kernel one SM holds, from its registers a thread
+    (``-Xptxas -v``; allocated 256 a warp), dynamic shared memory a block
+    and threads a block: the model of
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` that the plans of the
+    kernels size their grids by (``chip_smoke.py`` holds it against the card)."""
+    warps = -(-threads // 32)
+    by_smem = SMEM_PER_SM // (smem + 1024)
+    regs_warp = -(-registers * 32 // 256) * 256
+    by_regs = REGISTERS_PER_SM // regs_warp // warps
+    return max(0, min(by_smem, by_regs, THREADS_PER_SM // (32 * warps), BLOCKS_PER_SM_MAX))
+
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 U = ctypes.c_uint

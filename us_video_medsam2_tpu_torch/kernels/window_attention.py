@@ -38,14 +38,13 @@ from us_video_medsam2_tpu_torch.kernels import _lib
 SUPPORTED_HD = (64, 96)
 MAX_WS = 14
 MAX_WARPS = 8
-SMS = 132  # the H100's
+SMS = _lib.SMS
 # What the kernel's occupancy depends on, for window_tiles' wave rule (chip_smoke.py
-# holds the model below against cudaOccupancyMaxActiveBlocksPerMultiprocessor at
+# holds _lib.blocks_per_sm against cudaOccupancyMaxActiveBlocksPerMultiprocessor at
 # every grid window_tiles picks): registers a thread of each (hd, key tiles)
-# instantiation, from nvcc -Xptxas -v on sm_90a, and the SM's shared memory.
+# instantiation, from nvcc -Xptxas -v on sm_90a.
 REGISTERS = {(96, 13): 231, (96, 4): 128, (96, 1): 128, (64, 13): 221, (64, 4): 93, (64, 1): 80}
-SMEM_PER_SM = 233472  # bytes, of which 1 KB a block is the runtime's
-SMEM_PER_BLOCK = 232448
+SMEM_PER_BLOCK = _lib.SMEM_PER_BLOCK
 WARP_CHOICES = (1, 2, 4, 8)
 
 
@@ -146,12 +145,9 @@ def smem_bytes(hd: int, ws: int, warps: int) -> int:
 
 
 def blocks_per_sm(hd: int, ws: int, warps: int) -> int:
-    """How many blocks of the kernel one SM holds, from its shared memory,
-    registers (``REGISTERS``, allocated 256 a warp) and threads."""
-    by_smem = SMEM_PER_SM // (smem_bytes(hd, ws, warps) + 1024)
-    regs_warp = -(-REGISTERS[(hd, key_tiles(ws))] * 32 // 256) * 256
-    by_regs = 65536 // regs_warp // warps
-    return max(0, min(by_smem, by_regs, 2048 // (32 * warps), 32))
+    """How many blocks of the kernel one SM holds (``_lib.blocks_per_sm`` of
+    its ``REGISTERS``, shared memory and threads)."""
+    return _lib.blocks_per_sm(REGISTERS[(hd, key_tiles(ws))], smem_bytes(hd, ws, warps), 32 * warps)
 
 
 @functools.lru_cache(maxsize=None)  # ~30 us of Python a call otherwise, on every launch
