@@ -10,9 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    with the registers and spills that ``-Xptxas -v`` reports for the kernels
    of ``flash_dropout.cu`` (the forward and its combine must be there),
    ``layer_norm.cu``, ``ln_mlp_residual.cu`` (every
-   D, with and without the hidden split, and the combine) and the two
-   window-attention sources (both head-dim instantiations; a spill fails the
-   run); every (head dim, key tiles) instantiation of the window-attention
+   D, with and without the hidden split, and the combine), ``cxblock.cu``
+   and the two window-attention sources (both head-dim instantiations; a
+   spill fails the run); every (head dim, key tiles) instantiation of the window-attention
    kernel and of its qkv variant must be there, its registers printed beside
    those ``window_tiles``' and ``plan_for``'s occupancy tables assume (phase
    3 holds the tables' blocks an SM against the card's);
@@ -81,7 +81,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    plan's split agrees with the plain version and the check must reject it
    with one cluster rank's K and V share left out; the unfused pair
    (``F.linear`` into the bias map, then the window-attention kernel) is
-   timed beside it on the device, for information. The flash kernel splits the
+   timed beside it on the device, for information. The CXBlock kernel splits
+   the channels and the hidden axis over the blocks of a thread-block
+   cluster by ``plan_for`` (one cluster a token tile, the most splits whose
+   clusters all run at once): at every shape two calls give the same bits,
+   the plan's shared memory and blocks an SM are the card's and its clusters
+   all run at once on the card; the plain model of the split agrees with the
+   plain version and the check must reject it with one rank's partial left
+   out of the combine; its device time at the training shape and that of
+   the ``CXBlock`` module's default composition (switch unset) at B 1 and 3
+   are printed beside the kernel's, for information. The flash kernel splits the
    keys across blocks (``flash_splits``): it is held again, untimed, where
    the last split is ragged, where a split holds only keys past Lk, where a
    split holds only masked keys (beside a batch with none valid) and where
@@ -90,8 +99,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``window_attention_v1`` (LN, per-head qkv, window attention and the
    output projection in one call) is held at the seven windowed t512
    geometries (timed, ln_inside as the block would take it, and untimed
-   with the other value) and at the six geometries of the JAX package's v1
-   test at B 2 with both ln_inside values, with a check that must reject
+   with the other value; device time per call printed) and at the six
+   geometries of the JAX package's v1 test at B 2 with both ln_inside
+   values, with a check that must reject
    the plain version whose pad tokens' LN output is 0 instead of beta, and
    its gradient as those above. Window attention and its qkv variant are
    held and timed at head dim 64 too, at EfficientMedSAM-S's and -Ti's ws-14
@@ -303,7 +313,7 @@ def card_line() -> str:
 
 
 def ptxas_report(msgs, sources=("flash_dropout.cu", "layer_norm.cu", "ln_mlp_residual.cu",
-                                "window_attention.cu", "qkv_window_attention.cu")) -> dict:
+                                "window_attention.cu", "qkv_window_attention.cu", "cxblock.cu")) -> dict:
     """Registers and spills of each kernel of ``sources`` from the build's
     ``-Xptxas -v`` messages; raises if one of them spills. Returns
     {source: {mangled kernel name: registers}}."""
@@ -372,6 +382,19 @@ def check_qkv_registers(regs) -> None:
     if got.keys() != REGISTERS.keys():
         raise AssertionError(f"qkv_window_attention.cu: instantiations {sorted(got)} differ from "
                              f"qkv_window_attention.REGISTERS' {sorted(REGISTERS)}")
+
+
+def check_cxblock_registers(regs) -> None:
+    """The CXBlock kernel was compiled (so the spill check above covered it);
+    its registers are printed beside cxblock.REGISTERS, which its plan's
+    occupancy model reads (phase 3 holds the model's blocks an SM and clusters
+    at once against the card's at every plan it picks)."""
+    from us_video_medsam2_tpu_torch.kernels.cxblock import REGISTERS
+
+    got = [n for func, n in regs.get("cxblock.cu", {}).items() if "cxblock_kernel" in func]
+    log(f"  cxblock.cu: registers {got}; plan_for's table {REGISTERS}")
+    if len(got) != 1:
+        raise AssertionError(f"cxblock.cu: {len(got)} kernels compiled, expected cxblock_kernel")
 
 
 def sm_clock_hz() -> float:
@@ -925,7 +948,8 @@ def check_fused_kernels(g, rows) -> None:
     import torch
     import torch.nn.functional as F
 
-    from us_video_medsam2_tpu_torch.kernels.cxblock import cxblock, cxblock_plain
+    from us_video_medsam2_tpu_torch.kernels import cxblock as cx
+    from us_video_medsam2_tpu_torch.kernels.cxblock import cxblock, cxblock_plain, cxblock_split_plain
     from us_video_medsam2_tpu_torch.kernels import qkv_window_attention as qwa
     from us_video_medsam2_tpu_torch.kernels.qkv_window_attention import (
         qkv_window_attention,
@@ -933,6 +957,7 @@ def check_fused_kernels(g, rows) -> None:
         qkv_window_attention_split_plain,
     )
     from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
+    from us_video_medsam2_tpu_torch.models.memory import CXBlock
 
     def rn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
@@ -962,6 +987,22 @@ def check_fused_kernels(g, rows) -> None:
             raise AssertionError(f"qkv_window_attention plan {plan}: the card's occupancy {smem, blocks, clusters} "
                                  f"is not the model's {model}")
 
+    def hold_cx_plan(b, h, w) -> None:
+        """The CXBlock splits plan_for picks for [b, h, w, 256]: the shared
+        memory, blocks an SM and clusters at once held against the card's
+        occupancy API; the clusters (one a token tile) must all run at once
+        on the card, as the plan assumes."""
+        splits = cx.plan_for(b, h, w)
+        smem, blocks, clusters = cx.card_occupancy(splits)
+        model = (cx.smem_bytes(splits), cx.blocks_per_sm(splits), cx.clusters_at_once(splits))
+        tiles = cx.tiles(b, h, w)
+        log(f"    {splits} splits at [{b}, {h}, {w}]: {smem} B shared memory (model {model[0]}), {cx.REGISTERS} "
+            f"registers a thread (table), {blocks} blocks an SM (model {model[1]}), {clusters} clusters of "
+            f"{splits} at once (table {model[2]}): {tiles} clusters")
+        if (smem, blocks) != model[:2] or (splits > 1 and tiles > clusters):
+            raise AssertionError(f"cxblock at {splits} splits: the card's occupancy {smem, blocks, clusters} is not "
+                                 f"the model's {model}")
+
     def same_bits(name, call) -> None:
         """Two calls on the same inputs give the same bits."""
         a, b = call(), call()
@@ -971,15 +1012,32 @@ def check_fused_kernels(g, rows) -> None:
             raise AssertionError(f"{name}: two calls on the same inputs differ")
 
     def hold_cxblock(name, args) -> float:
-        """out and out − x against the plain version; max abs error."""
+        """out and out − x against the plain version, two calls bit-identical,
+        the plan against the card; max abs error."""
         got, want = cxblock(*args), cxblock_plain(*args)
         x = args[0].float()
-        return max(compare(f"{name} out", got, want),
-                   compare(f"{name} out - x", got.float() - x, want.float() - x))
+        err = max(compare(f"{name} out", got, want), compare(f"{name} out - x", got.float() - x, want.float() - x))
+        same_bits(name, lambda: cxblock(*args))
+        hold_cx_plan(*args[0].shape[:3])
+        return err
+
+    def module_device_ms(args) -> float:
+        """Device ms a call of the CXBlock module's default composition (the
+        switch unset: depthwise Conv2d, LayerNorm, two cuBLAS Linears, GELU,
+        scale, residual) on the same inputs in bf16, for information."""
+        blk = CXBlock(args[0].shape[-1]).to("cuda")
+        names = ("dwconv.conv.weight", "dwconv.conv.bias", "norm.weight", "norm.bias", "pwconv1.weight",
+                 "pwconv1.bias", "pwconv2.weight", "pwconv2.bias", "gamma")
+        with torch.no_grad():
+            for pname, v in zip(names, args[1:]):
+                blk.get_parameter(pname).copy_(v)
+            blk = blk.to(torch.bfloat16)
+            return device_ms(lambda: blk(args[0]))
 
     r = rows["cxblock"] = Row("cxblock")
     log("cxblock (depthwise 7x7 f32 taps, fast-variance LN eps 1e-6, exact GELU, gamma 1 +- 0.1)")
-    r.check(hold_cxblock(f"B{TRAIN_OBJECTS} {CX_SIDE}^2 training", cxblock_args(rn, TRAIN_OBJECTS, CX_SIDE)))
+    train_args = cxblock_args(rn, TRAIN_OBJECTS, CX_SIDE)
+    r.check(hold_cxblock(f"B{TRAIN_OBJECTS} {CX_SIDE}^2 training", train_args))
     args = cxblock_args(rn, 1, CX_SIDE)
     err = hold_cxblock(f"{CX_SIDE}^2", args)
     # the check must reject a kernel that drops the pwconv1 bias
@@ -989,6 +1047,15 @@ def check_fused_kernels(g, rows) -> None:
     log(f"  self-test, plain version without b1: out - x {msg} {'passed (FAIL)' if ok else 'rejected'}")
     if ok:
         raise AssertionError("the cxblock check does not see a dropped b1")
+    # the plain model of the plan's split agrees; the check must reject it with
+    # one rank's partial left out of the combine
+    splits = cx.plan_for(1, CX_SIDE, CX_SIDE)
+    compare(f"{CX_SIDE}^2 plain split model, {splits} splits", cxblock_split_plain(*args, splits), want)
+    dropped = cxblock_split_plain(*args, splits, drop_split=1)
+    ok, msg, _ = agreement(dropped.float() - args[0].float(), want.float() - args[0].float(), attention=False)
+    log(f"  self-test, split model without rank 1's partial: out - x {msg} {'passed (FAIL)' if ok else 'rejected'}")
+    if ok:
+        raise AssertionError("the cxblock check does not see a split left out of the combine")
     hw, c, f = CX_SIDE * CX_SIDE, CX_C, 4 * CX_C
     nbytes = 2 * 2 * hw * c + 2 * 2 * c * f + 4 * (49 * c + 6 * c + f)
     # products on the bf16 tensor cores, the depthwise taps as f32 FMAs
@@ -997,9 +1064,18 @@ def check_fused_kernels(g, rows) -> None:
     # one memory encoding of each model: both run the same memory encoder
     r.add([1, CX_SIDE, CX_SIDE, c], 2 * PER_MEMORY_ENCODING["cxblock"], err, time_ms(lambda: cxblock(*args)),
           time_ms(lambda: cxblock_plain(*args)), bnd, by, dev=(device_ms(lambda: cxblock(*args)), None))
-    log(f"  {(CX_SIDE // 8) ** 2} blocks of 8x8 tokens at B 1 on "
-        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs; each block reads W1 and W2 "
-        f"({2 * 2 * c * f / 1e6:.2f} MB) from L2")
+    r.shapes[-1]["splits"] = splits
+    train_dev = device_ms(lambda: cxblock(*train_args))
+    r.shapes[-1]["training_device_ms"] = train_dev
+    module = {b: module_device_ms(a) for b, a in ((1, args), (TRAIN_OBJECTS, train_args))}
+    r.shapes[-1]["module_device_ms"] = module
+    log(f"  B{TRAIN_OBJECTS} (training): kernel {train_dev:.4f} ms a call on the device, "
+        f"{cx.plan_for(TRAIN_OBJECTS, CX_SIDE, CX_SIDE)} splits")
+    log(f"  the module's default composition (switch unset) on the device, for information: B1 {module[1]:.4f} ms, "
+        f"B{TRAIN_OBJECTS} {module[TRAIN_OBJECTS]:.4f} ms a call, against the kernel's "
+        f"{r.shapes[-1]['device_ms']:.4f} / {train_dev:.4f}")
+    log(f"  {cx.tiles(1, CX_SIDE, CX_SIDE)} token tiles of 8x8 at B 1, each a cluster of {splits} blocks on "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     log("  library: none (no one PyTorch call runs the depthwise conv, LN, both pointwise products, "
         "GELU, layer scale and residual)")
 
@@ -1142,7 +1218,8 @@ def check_window_attention_v1(g, rows) -> None:
                   + 2 * rows_out * co)
         bnd, by = bound_ms(nbytes, flops, BF16_FLOPS)
         r.add([hp, hp, c, nh, co, ws, pool, ln], cnt, err, time_ms(lambda: window_attention_v1(*a, ws, pool, ln, eps)),
-              time_ms(lambda: window_attention_v1_plain(*a, ws, pool, ln, eps)), bnd, by)
+              time_ms(lambda: window_attention_v1_plain(*a, ws, pool, ln, eps)), bnd, by,
+              dev=(device_ms(lambda: window_attention_v1(*a, ws, pool, ln, eps)), None))
     log("  library: none (no one PyTorch call runs LN, the per-head qkv projection, the window gather, "
         "the q pool, the attention and the output projection)")
     log("  the JAX package's v1 test geometries at B 2 (untimed)")
@@ -2061,6 +2138,7 @@ def main(argv=None) -> int:
         regs = ptxas_report(msgs)
         check_window_registers(regs)
         check_qkv_registers(regs)
+        check_cxblock_registers(regs)
         check_dropout_fwd_registers(regs)
     else:
         log("  (library built before this run: no compiler report)")

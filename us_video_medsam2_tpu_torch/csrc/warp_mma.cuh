@@ -1,7 +1,7 @@
 // Warp-level building blocks of the flash and window kernels (sm_90a):
 // cp.async copies into shared memory, ldmatrix fragment loads,
 // mma.sync.m16n8k16 with bf16 operands and f32 accumulators in registers, and
-// the thread-block cluster barrier and distributed shared-memory loads.
+// the thread-block cluster barrier and distributed shared-memory stores.
 //
 // Fragment layout of one m16n8 accumulator c[4] (lane = 4 * g + t4): c[0],
 // c[1] hold row g, columns 2 * t4 and 2 * t4 + 1; c[2], c[3] the same

@@ -141,6 +141,12 @@ SMEM_PER_BLOCK = 232448
 REGISTERS_PER_SM = 65536
 THREADS_PER_SM = 2048
 BLOCKS_PER_SM_MAX = 32
+# Thread-block clusters of C blocks the card runs at once
+# (cudaOccupancyMaxActiveClusters) by (C, blocks an SM): the H100's SMs sit in
+# GPCs of uneven size, so this is below 132 / C. chip_smoke.py holds it
+# against the card at every plan of the qkv window-attention and CXBlock
+# kernels.
+CLUSTERS_AT_ONCE = {(2, 1): 66, (3, 1): 39, (4, 1): 30, (5, 1): 22, (6, 1): 17, (7, 1): 15, (8, 1): 15}
 
 
 def blocks_per_sm(registers: int, smem: int, threads: int) -> int:

@@ -57,11 +57,9 @@ MAX_GROUP_TILES = 8  # token tiles of a group of G > 1 windows: an M dimension o
 # What the plan's occupancy depends on (chip_smoke.py holds both against the
 # card at every plan plan_for picks): registers a thread of each (hd, key
 # tiles) instantiation, from nvcc -Xptxas -v on sm_90a, and the clusters of C
-# blocks the card runs at once (cudaOccupancyMaxActiveClusters) by (C, blocks
-# an SM); the H100's SMs sit in GPCs of uneven size, so this is below 132 / C.
-# At 8 warps and these registers an SM holds one block.
+# blocks the card runs at once (``_lib.CLUSTERS_AT_ONCE``). At 8 warps and
+# these registers an SM holds one block.
 REGISTERS = {(96, 13): 254, (96, 4): 244, (96, 1): 244, (64, 13): 254, (64, 4): 166, (64, 1): 167}
-CLUSTERS_AT_ONCE = {(2, 1): 66, (3, 1): 39, (4, 1): 30, (5, 1): 22, (6, 1): 17, (7, 1): 15, (8, 1): 15}
 # The plan's model of a block's time, in flop: ROUND_FLOPS for its fixed chain
 # (launch, pipeline fill, barriers, the slab core's latency), its products,
 # and FLOPS_PER_BYTE a byte it reads from L2. Chosen against every plan's
@@ -156,7 +154,7 @@ def clusters_at_once(hd: int, ws: int, q_pool: bool, plan: Plan) -> int | None:
     per_sm = blocks_per_sm(hd, ws, q_pool, plan)
     if per_sm == 0:
         return None
-    return _lib.SMS * per_sm if plan.c == 1 else CLUSTERS_AT_ONCE.get((plan.c, per_sm))
+    return _lib.SMS * per_sm if plan.c == 1 else _lib.CLUSTERS_AT_ONCE.get((plan.c, per_sm))
 
 
 def _rank_work(win: _Window, hd: int, cin: int, q_pool: bool, plan: Plan, rank: int) -> tuple[int, int]:
