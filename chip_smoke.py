@@ -10,11 +10,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    with the registers and spills that ``-Xptxas -v`` reports for the kernels
    of ``flash_dropout.cu`` (the forward and its combine must be there),
    ``layer_norm.cu``, ``ln_mlp_residual.cu`` (every
-   D, with and without the hidden split, and the combine), ``cxblock.cu``
-   and the two window-attention sources (both head-dim instantiations; a
-   spill fails the run); every (head dim, key tiles) instantiation of the window-attention
-   kernel and of its qkv variant must be there, its registers printed beside
-   those ``window_tiles``' and ``plan_for``'s occupancy tables assume (phase
+   D, with and without the hidden split, and the combine), ``cxblock.cu``,
+   the two window-attention sources (both head-dim instantiations) and
+   ``window_attention_v1.cu`` (a spill fails the run); every (head dim, key
+   tiles) instantiation of the window-attention kernel and of its qkv
+   variant, and every key-tiles and projection-tile instantiation of v1's
+   two kernels, must be there, its registers printed beside those
+   ``window_tiles``' and the ``plan_for``s' occupancy tables assume (phase
    3 holds the tables' blocks an SM against the card's);
 3. each kernel against its plain PyTorch version at every shape the main path
    gives it, in bf16: max abs / rel error against the stated tolerance, and
@@ -103,7 +105,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    geometries of the JAX package's v1 test at B 2 with both ln_inside
    values, with a check that must reject
    the plain version whose pad tokens' LN output is 0 instead of beta, and
-   its gradient as those above. Window attention and its qkv variant are
+   its gradient as those above. v1 cuts its work by ``plan_for`` (windows a
+   group, blocks a thread-block cluster, the output projection's tile): at
+   every geometry two calls give the same bits and the plan's shared memory
+   and blocks an SM (both kernels) are the card's and its clusters at once
+   give the card's waves; at t512's unpooled ws-14 block the plain model of
+   the plan's cut agrees with the plain version and the check must reject it
+   with one head left out of the output projection's sum; its device time
+   (by kernel) is printed beside that of the port's own compositions of the
+   same blocks (the main path's calls, and the fused configuration's), for
+   information. Window attention and its qkv variant are
    held and timed at head dim 64 too, at EfficientMedSAM-S's and -Ti's ws-14
    blocks ([1, 42, 42, 3·nh·64], nh 6 and 3, Cin 384 and 192), and again
    untimed at B 2 and with q-pooling on a 28x28 map. Window attention is held
@@ -313,7 +324,8 @@ def card_line() -> str:
 
 
 def ptxas_report(msgs, sources=("flash_dropout.cu", "layer_norm.cu", "ln_mlp_residual.cu",
-                                "window_attention.cu", "qkv_window_attention.cu", "cxblock.cu")) -> dict:
+                                "window_attention.cu", "qkv_window_attention.cu", "cxblock.cu",
+                                "window_attention_v1.cu")) -> dict:
     """Registers and spills of each kernel of ``sources`` from the build's
     ``-Xptxas -v`` messages; raises if one of them spills. Returns
     {source: {mangled kernel name: registers}}."""
@@ -404,6 +416,33 @@ def sm_clock_hz() -> float:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def check_v1_registers(regs) -> None:
+    """Every instantiation of window_attention_v1's two kernels was compiled
+    (so the spill check above covered them): the attention kernel at each
+    key-tiles count and the output projection at each tile. Their registers
+    are printed beside window_attention_v1.REGISTERS and PROJ_REGISTERS,
+    which its plan's occupancy model reads (phase 3 holds the model's
+    blocks an SM and clusters at once against the card's at every pick)."""
+    import re
+
+    from us_video_medsam2_tpu_torch.kernels.rejected.window_attention_v1 import PROJ_REGISTERS, REGISTERS
+
+    att, proj = {}, {}
+    for func, n in regs.get("window_attention_v1.cu", {}).items():
+        m = re.search(r"window_attention_v1_kernelILi(\d+)EE", func)
+        if m:
+            att[int(m.group(1))] = n
+        m = re.search(r"out_proj_kernelILi(\d+)ELi(\d+)EE", func)
+        if m:
+            proj[(16 * int(m.group(1)), int(m.group(2)))] = n
+    log(f"  window_attention_v1.cu: registers by key tiles {dict(sorted(att.items()))}, plan_for's table "
+        f"{dict(sorted(REGISTERS.items()))}; output projection by (rows, 8-column tiles a warp) "
+        f"{dict(sorted(proj.items()))}, table {dict(sorted(PROJ_REGISTERS.items()))}")
+    if att.keys() != REGISTERS.keys() or proj.keys() != PROJ_REGISTERS.keys():
+        raise AssertionError(f"window_attention_v1.cu: instantiations {sorted(att)} / {sorted(proj)} differ from "
+                             "the plan's tables")
 
 
 def check_dropout_fwd_registers(regs) -> None:
@@ -943,6 +982,17 @@ def qkv_args(rn, b, hp, nh, cin, real, hd=HD):
     return y, rn(3 * nh * hd, cin, scale=cin**-0.5), rn(3 * nh * hd, scale=0.5, dtype=torch.float32)
 
 
+def same_bits(name, call) -> None:
+    """Two calls on the same inputs give the same bits."""
+    import torch
+
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    log(f"  {name}: two calls bit-identical {torch.equal(a, b)}")
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+
+
 def check_fused_kernels(g, rows) -> None:
     """The two kernels of the fused configuration against their plain versions."""
     import torch
@@ -1002,14 +1052,6 @@ def check_fused_kernels(g, rows) -> None:
         if (smem, blocks) != model[:2] or (splits > 1 and tiles > clusters):
             raise AssertionError(f"cxblock at {splits} splits: the card's occupancy {smem, blocks, clusters} is not "
                                  f"the model's {model}")
-
-    def same_bits(name, call) -> None:
-        """Two calls on the same inputs give the same bits."""
-        a, b = call(), call()
-        torch.cuda.synchronize()
-        log(f"  {name}: two calls bit-identical {torch.equal(a, b)}")
-        if not torch.equal(a, b):
-            raise AssertionError(f"{name}: two calls on the same inputs differ")
 
     def hold_cxblock(name, args) -> float:
         """out and out − x against the plain version, two calls bit-identical,
@@ -1171,31 +1213,98 @@ def v1_args(rn, b, hp, c, nh, co, real):
             rn(nh, HD, co, scale=HD**-0.5), rn(co, scale=0.1, dtype=f32))
 
 
+def v1_compositions(a, ws, nh, pool, ln, eps=1e-6):
+    """The port's own ways to the function window_attention_v1 computes, on
+    its inputs ``a``, for the yardstick: (unfused, fused) callables. Unfused
+    is the main path's calls (models/hiera.py: the layer_norm kernel, the qkv
+    Linear, the window_attention kernel, the proj Linear); fused the fused
+    configuration's (layer_norm, qkv_window_attention, the proj Linear). The
+    weights are put in the Linear layout once, outside the calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from us_video_medsam2_tpu_torch.kernels.layer_norm import layer_norm
+    from us_video_medsam2_tpu_torch.kernels.qkv_window_attention import qkv_window_attention
+    from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention
+
+    x, gamma, beta, wq, wk, wv, bq, bk, bv, wo, bo = a
+    c, hd, co = x.shape[-1], wq.shape[-1], wo.shape[-1]
+    w = torch.cat([t.permute(0, 2, 1).reshape(nh * hd, c) for t in (wq, wk, wv)]).contiguous()
+    b = torch.cat([t.reshape(-1) for t in (bq, bk, bv)]).contiguous()
+    b_dt, w_proj, bo_dt = b.to(x.dtype), wo.reshape(nh * hd, co).t().contiguous(), bo.to(x.dtype)
+
+    def norm():
+        return layer_norm(x, gamma, beta, eps) if ln else x
+
+    def unfused():
+        return F.linear(window_attention(F.linear(norm(), w, b_dt), ws, nh, pool), w_proj, bo_dt)
+
+    def fused():
+        return F.linear(qkv_window_attention(norm(), w, b, ws, nh, pool), w_proj, bo_dt)
+
+    return unfused, fused
+
+
 def check_window_attention_v1(g, rows) -> None:
-    """The unwired window_attention_v1 against its plain version."""
+    """The unwired window_attention_v1 against its plain version: two calls
+    bit-identical, its plans against the card's occupancy, and its device
+    time beside the port's own compositions of the same blocks."""
     import torch
 
+    from us_video_medsam2_tpu_torch.kernels.rejected import window_attention_v1 as v1m
     from us_video_medsam2_tpu_torch.kernels.rejected.window_attention_v1 import (
         _ln,
         window_attention_v1,
         window_attention_v1_plain,
+        window_attention_v1_split_plain,
     )
 
     def rn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
 
+    held = set()
+
+    def hold_plan(b, hp, c, nh, co, ws, pool, ln) -> None:
+        """The plan plan_for picks here: the attention kernel's shared memory,
+        blocks an SM and clusters at once, and the output projection's blocks
+        an SM, held against the card's occupancy API (once a plan). The
+        clusters table may differ from the card only where the waves stay
+        the same."""
+        plan = v1m.plan_for(b, hp, hp, ws, nh, pool, c, co, ln)
+        if (ws, pool, c, ln, plan) in held:
+            return
+        held.add((ws, pool, c, ln, plan))
+        smem, blocks, clusters, proj_blocks = v1m.card_occupancy(ws, pool, c, ln, plan)
+        model = (v1m.smem_bytes(ws, pool, c, ln, plan), v1m.blocks_per_sm(ws, pool, c, ln, plan),
+                 v1m.clusters_at_once(ws, pool, c, ln, plan), v1m.proj_blocks_per_sm(plan.rows, plan.nt))
+        tasks = -(-b * (hp // ws) ** 2 // plan.g) * nh
+        waves = (-(-tasks // clusters) if clusters else None, -(-tasks // model[2]))
+        log(f"    plan {tuple(plan)} (G, C, projection rows, 8-column tiles) at ws {ws} C {c} pool={pool} "
+            f"ln={ln}: {smem} B shared memory (model {model[0]}, token rows resident "
+            f"{v1m.resident(ws, pool, c, ln, plan)}), {blocks} blocks an SM (model {model[1]}), {clusters} "
+            f"clusters of {plan.c} at once (table {model[2]}): {tasks} clusters in {waves[0]} waves; projection "
+            f"{proj_blocks} blocks an SM (model {model[3]})")
+        if (smem, blocks, proj_blocks) != (model[0], model[1], model[3]) or waves[0] != waves[1]:
+            raise AssertionError(f"window_attention_v1 plan {plan}: the card's occupancy "
+                                 f"{smem, blocks, clusters, proj_blocks} is not the model's {model}")
+
     eps = 1e-6
     r = rows["window_attention_v1"] = Row("window_attention_v1")
     log(f"window_attention_v1 (unwired; LN eps {eps}, per-head qkv, hd {HD}, f32 scores, P normalised then "
         "rounded, out-projection summed over heads in f32)")
+    composition = [0.0, 0.0]
     for (hp, c, nh, co, ws, pool, real), cnt in V1_SHAPES:
         ln = not pool
         geo = f"{hp}^2 (from {real}^2) C{c} nh{nh} Co{co} ws{ws} pool={pool}"
         a = v1_args(rn, 1, hp, c, nh, co, real)
         r.check(compare(f"{geo} ln_inside={not ln}", window_attention_v1(*a, ws, pool, not ln, eps),
                         window_attention_v1_plain(*a, ws, pool, not ln, eps), attention=True))
+        same_bits(f"{geo} ln_inside={not ln}", lambda: window_attention_v1(*a, ws, pool, not ln, eps))
+        hold_plan(1, hp, c, nh, co, ws, pool, not ln)
         want = window_attention_v1_plain(*a, ws, pool, ln, eps)
         err = compare(f"{geo} ln_inside={ln}", window_attention_v1(*a, ws, pool, ln, eps), want, attention=True)
+        same_bits(f"{geo} ln_inside={ln}", lambda: window_attention_v1(*a, ws, pool, ln, eps))
+        hold_plan(1, hp, c, nh, co, ws, pool, ln)
         if (hp, ws, nh, pool) == (42, 14, 4, False):
             # the check must reject a kernel that leaves the pad tokens' LN output at 0, not beta
             y = _ln(a[0], a[1], a[2], eps)
@@ -1205,6 +1314,17 @@ def check_window_attention_v1(g, rows) -> None:
             log(f"  self-test, pad tokens' LN output 0: {msg} {'passed (FAIL)' if ok else 'rejected'}")
             if ok:
                 raise AssertionError("the window_attention_v1 check does not see pad tokens left at 0")
+            # the plain model of the plan's cut agrees; the check must reject it
+            # with one head left out of the output projection's sum
+            plan = v1m.plan_for(1, hp, hp, ws, nh, pool, c, co, ln)
+            compare(f"{geo} plain split model, plan {tuple(plan)}",
+                    window_attention_v1_split_plain(*a, ws, pool, ln, eps, plan), want, attention=True)
+            dropped = window_attention_v1_split_plain(*a, ws, pool, ln, eps, plan, drop_head=1)
+            ok, msg, _ = agreement(dropped, want, attention=True)
+            log(f"  self-test, split model without head 1 in the projection's sum: {msg} "
+                f"{'passed (FAIL)' if ok else 'rejected'}")
+            if ok:
+                raise AssertionError("the window_attention_v1 check does not see a head left out")
         nwin = (hp // ws) ** 2
         wso = ws // 2 if pool else ws
         rows_out = nwin * wso * wso
@@ -1219,16 +1339,28 @@ def check_window_attention_v1(g, rows) -> None:
         bnd, by = bound_ms(nbytes, flops, BF16_FLOPS)
         r.add([hp, hp, c, nh, co, ws, pool, ln], cnt, err, time_ms(lambda: window_attention_v1(*a, ws, pool, ln, eps)),
               time_ms(lambda: window_attention_v1_plain(*a, ws, pool, ln, eps)), bnd, by,
-              dev=(device_ms(lambda: window_attention_v1(*a, ws, pool, ln, eps)), None))
+              dev=(device_ms(lambda: window_attention_v1(*a, ws, pool, ln, eps), by_kernel=True), None))
+        r.shapes[-1]["plan"] = tuple(v1m.plan_for(1, hp, hp, ws, nh, pool, c, co, ln))
+        # for information: the port's own compositions of the same block
+        comp = [device_ms(f) for f in v1_compositions(a, ws, nh, pool, ln, eps)]
+        composition = [t + cnt * ms for t, ms in zip(composition, comp)]
+        r.shapes[-1]["composition_device_ms"] = {"unfused": comp[0], "fused": comp[1]}
+        log(f"      compositions on the device: main path (layer_norm, qkv Linear, window_attention, proj Linear) "
+            f"{comp[0]:.4f} ms, fused configuration (layer_norm, qkv_window_attention, proj Linear) {comp[1]:.4f} "
+            f"ms a call, against v1's {r.shapes[-1]['device_ms']:.4f}")
+    log(f"  over the nine blocks on the device: v1 {r.device_ms:.4f} ms, main-path composition {composition[0]:.4f}, "
+        f"fused composition {composition[1]:.4f}")
     log("  library: none (no one PyTorch call runs LN, the per-head qkv projection, the window gather, "
         "the q pool, the attention and the output projection)")
     log("  the JAX package's v1 test geometries at B 2 (untimed)")
     for hp, c, nh, co, ws, pool in V1_JAX_CASES:
         a = v1_args(rn, 2, hp, c, nh, co, hp)
         for ln in (True, False):
-            r.check(compare(f"B2 {hp}^2 C{c} nh{nh} Co{co} ws{ws} pool={pool} ln_inside={ln}",
-                            window_attention_v1(*a, ws, pool, ln, eps),
+            name = f"B2 {hp}^2 C{c} nh{nh} Co{co} ws{ws} pool={pool} ln_inside={ln}"
+            r.check(compare(name, window_attention_v1(*a, ws, pool, ln, eps),
                             window_attention_v1_plain(*a, ws, pool, ln, eps), attention=True))
+            same_bits(name, lambda: window_attention_v1(*a, ws, pool, ln, eps))
+            hold_plan(2, hp, c, nh, co, ws, pool, ln)
 
 
 def grad_agreement(got, want) -> tuple[bool, str, float]:
@@ -2139,6 +2271,7 @@ def main(argv=None) -> int:
         check_window_registers(regs)
         check_qkv_registers(regs)
         check_cxblock_registers(regs)
+        check_v1_registers(regs)
         check_dropout_fwd_registers(regs)
     else:
         log("  (library built before this run: no compiler report)")
