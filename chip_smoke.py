@@ -134,18 +134,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    all "no object"), on a seeded video of smooth moving blobs:
    ``build_sam2_video_predictor`` -> ``init_state`` ->
    ``add_new_points_or_box`` (frame 0, one click) -> ``propagate_in_video``.
-   Launch counters are zeroed just before and read just after and must
-   equal 9 window-attention, 12 LayerNorm and 12 MLP launches per encoded
-   frame and 8 flash launches per tracked frame. The first frames are run
-   again on the host CPU (plain versions, f32) with the same weights and
-   compared per frame;
+   Each tracked frame is one replay of the predictor's CUDA graph of its
+   frame body (``inference/graphs.py``): a warm-up run captures it (its
+   seconds, pool memory and captured launches printed), then each timed run
+   is a new ``init_state`` of the same shape that must capture nothing, with
+   the tracking window under ``torch.cuda.set_sync_debug_mode("error")`` (a
+   host sync inside it fails the phase). Launch counters (counted at
+   replay: a graph adds its captured counts at every replay) are zeroed
+   just before and read just after and must equal 9 window-attention, 12
+   LayerNorm and 12 MLP launches per encoded frame and 8 flash launches per
+   tracked frame. The same runs with the frame body run eagerly on the card
+   (``EagerBodies`` in place of the graphs; the same exact counts) are held
+   against the graph runs: the same bits are expected, the gate is logit
+   rel-L2 <= 1e-3 and mask IoU >= 0.999 outside the bf16 band, max |d|
+   printed; ms per tracked frame of graph and eager are printed side by
+   side. Then the weight matrices are cast to f32 and back to bf16 (the same
+   values in new memory): the next run must capture anew (the kept graph
+   read the old memory) and meet the same gate against the graph runs.
+   After phase 5, the predictor must keep at most ``MAX_GRAPHS`` graphs
+   (``inference/graphs.py``). The first frames are run again on the host CPU (plain versions,
+   f32) with the same weights and compared per frame. Then the same model
+   with ``precompute_features_batch=8`` (every frame encoded before the
+   window in batches of 8): exact counts of 9 window-attention, 12
+   LayerNorm and 12 MLP launches per batch of 8 (and once more for the
+   prompted frame), held against the same host run;
 5. the fused configuration: phase 4 again with the JAX package's two opt-in
    switches set (``US_MEDSAM2_ENABLE_FUSED_CXBLOCK``,
-   ``US_MEDSAM2_FUSE_QKV_WINDOW_ATTN``): 9 qkv-window-attention and no
+   ``US_MEDSAM2_FUSE_QKV_WINDOW_ATTN``; a graph of its own, since the
+   switches are part of a graph's key): 9 qkv-window-attention and no
    window-attention launches per encoded frame, 2 CXBlock launches per
-   memory encoding, the same LayerNorm, MLP and flash counts, the frames
-   held against phase 4's host reference, and ms per tracked frame with the
-   switches off and on printed side by side;
+   memory encoding, the same LayerNorm, MLP and flash counts, graph against
+   eager as in phase 4, the frames held against phase 4's host reference,
+   and ms per tracked frame with the switches off and on printed side by
+   side;
 6. EfficientMedSAM-S: phases 4 and 5 for ``efficientmedsam_s_512`` (the
    ViTDet trunk at embed 384, 6 heads of 64) through
    ``build_efficienttam_video_predictor``, with the same seeded weights rule
@@ -153,8 +174,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    window-attention (head dim 64), 12 LayerNorm and 12 MLP launches per
    encoded frame and 8 flash per tracked frame; fused, 8
    qkv-window-attention and no window-attention launches per encoded frame
-   and 2 CXBlock launches per memory encoding; both held against one host
-   f32 run;
+   and 2 CXBlock launches per memory encoding; graph against eager in both
+   configurations, both held against one host f32 run;
 7. the training path: the ``sam2.1_hiera_t512`` training step at full width
    (T = 4 frames, B = 1 video, O = 3 objects, ``TrainSimConfig()``, temporal
    consistency loss 0.5, AdamW with layer decay) in bf16 with f32 master
@@ -280,6 +301,11 @@ FUSED_SWITCHES = ("US_MEDSAM2_ENABLE_FUSED_CXBLOCK", "US_MEDSAM2_FUSE_QKV_WINDOW
 FRAMES = 16  # video length of the main path
 CHECK_FRAMES = 4  # frames run again on the host CPU
 REPEATS = 3  # timed main-path runs, median kept
+PRECOMPUTE_BATCH = 8  # phase 4's run with precompute_features_batch
+# graph replay vs the same frame body run eagerly on the card: the same
+# kernels on the same inputs (same bits expected; max |d| is printed)
+GRAPH_REL_L2_TOL = 1e-3
+GRAPH_MASK_IOU_TOL = 0.999
 SEED = 0
 PER_ENCODED_FRAME = {"window_attention": 9, "layer_norm": 12, "ln_mlp_residual": 12}
 PER_TRACKED_FRAME = {"flash_attention": 8}
@@ -1859,8 +1885,10 @@ def make_video(frames: int, size: int, seed: int):
 
 def run_main_path(predictor, video, click, stop_after=None):
     """init_state -> add_new_points_or_box (frame 0, one positive click) ->
-    propagate_in_video. Returns ({frame: video-res logits [1, H, W]},
-    seconds of init_state + prompt, seconds of propagation)."""
+    propagate_in_video (frames 0 to ``stop_after`` - 1 only, when given: the
+    predictor runs its whole window before it yields). Returns ({frame:
+    video-res logits [1, H, W]}, seconds of init_state + prompt, seconds of
+    propagation)."""
     import torch
 
     sync = torch.cuda.synchronize if predictor.device.type == "cuda" else (lambda: None)
@@ -1871,10 +1899,9 @@ def run_main_path(predictor, video, click, stop_after=None):
     sync()
     t1 = time.perf_counter()
     out = {}
-    for f, _, masks in predictor.propagate_in_video(state):
+    track = None if stop_after is None else stop_after - 1
+    for f, _, masks in predictor.propagate_in_video(state, max_frame_num_to_track=track):
         out[f] = masks[:, 0]
-        if stop_after is not None and len(out) >= stop_after:
-            break
     sync()
     return out, t1 - t0, time.perf_counter() - t1
 
@@ -1917,28 +1944,17 @@ def iou(a, b) -> float:
 
 
 def counters():
-    from us_video_medsam2_tpu_torch.kernels import (
-        cxblock,
-        flash_attention,
-        flash_dropout,
-        layer_norm,
-        ln_mlp_residual,
-        qkv_window_attention,
-        window_attention,
-    )
-    from us_video_medsam2_tpu_torch.kernels.rejected import window_attention_v1
+    """Every kernel wrapper by name: the registry of ``kernels/_lib.py``
+    (``COUNTED``), with every module of the kernels package imported."""
+    import importlib
+    import pkgutil
 
-    return {
-        "window_attention": window_attention.window_attention,
-        "layer_norm": layer_norm.layer_norm,
-        "ln_mlp_residual": ln_mlp_residual.ln_mlp_residual,
-        "flash_attention": flash_attention.flash_attention,
-        "flash_dropout_fwd": flash_dropout.flash_dropout_fwd,
-        "flash_dropout_bwd": flash_dropout.flash_dropout_bwd,
-        "cxblock": cxblock.cxblock,
-        "qkv_window_attention": qkv_window_attention.qkv_window_attention,
-        "window_attention_v1": window_attention_v1.window_attention_v1,
-    }
+    from us_video_medsam2_tpu_torch import kernels
+    from us_video_medsam2_tpu_torch.kernels import _lib
+
+    for m in pkgutil.walk_packages(kernels.__path__, kernels.__name__ + "."):
+        importlib.import_module(m.name)
+    return dict(_lib.COUNTED)
 
 
 def read_counts(fn):
@@ -2117,19 +2133,86 @@ def fused_switches(on: bool = True):
             os.environ.pop(k, None)
 
 
-def timed_runs(predictor, video, click, expected):
-    """Warm-up, then REPEATS main-path runs with exact launch counts; the
-    median run's (masks, wall, init_state + prompt s, propagation s)."""
+class EagerBodies:
+    """Stands in for a predictor's ``graphs`` (``inference/graphs.py``
+    ``FrameGraphs``): each "replay" runs the frame body eagerly on the card,
+    over buffers made as for a graph. The predictor has no switch for this;
+    the check of graph against eager puts it in place of the graphs."""
+
+    class Body:
+        def __init__(self, bufs, body):
+            self.bufs, self.body = bufs, body
+
+        def replay(self):
+            self.body(self.bufs)
+
+    def __init__(self):
+        self.entries = {}
+        self.captures = 0
+
+    def get(self, key, make, body, weights=()):
+        if key not in self.entries:
+            self.entries[key] = self.Body(make(), body)
+        return self.entries[key]
+
+
+def graph_report(predictor, known) -> None:
+    """Capture seconds, pool memory and captured launches of each graph not in ``known``."""
+    for key, g in predictor.graphs.entries.items():
+        if key in known or not hasattr(g, "capture_s"):
+            continue
+        counts = {getattr(w, "__name__", str(w)): n for w, n in g.counts.items()}
+        log(f"  graph (frames {key[0]}, objects {key[1]}, cond slots {key[2]}, reverse {key[3]}, "
+            f"precompute {key[4]}, fused switches {key[5]}/{key[6]}): warm-up and capture "
+            f"{g.capture_s:.3f} s, pool {g.pool_bytes / 2**20:.1f} MiB, captured launches {counts}")
+
+
+@contextlib.contextmanager
+def window_sync_errors(predictor):
+    """Inside the block, every host sync inside ``predictor``'s tracking
+    window (its ``_run_window``) is an error:
+    ``torch.cuda.set_sync_debug_mode("error")`` around each window."""
     import torch
 
-    run_main_path(predictor, video, click)  # warm-up: lazy CUDA / library initialisation
+    run = predictor._run_window
+
+    def checked(*args, **kwargs):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    predictor._run_window = checked
+    try:
+        yield
+    finally:
+        del predictor._run_window
+
+
+def timed_runs(predictor, video, click, expected):
+    """Warm-up (where the predictor captures its frame body), then REPEATS
+    main-path runs with exact launch counts, each a new state of the same
+    shape that must capture nothing, with every host sync inside the
+    tracking window an error; the median run's (masks, wall, init_state +
+    prompt s, propagation s)."""
+    import torch
+
+    known = set(predictor.graphs.entries)
+    run_main_path(predictor, video, click)  # warm-up: lazy CUDA / library initialisation, capture
+    graph_report(predictor, known)
+    captures = predictor.graphs.captures
     runs = []
-    for _ in range(REPEATS):
-        (masks, t_prompt, t_prop), launches = read_counts(lambda: run_main_path(predictor, video, click))
-        log(f"  launches {launches}, expected {expected}")
-        if launches != expected:
-            raise AssertionError(f"launch counts {launches} != {expected}")
-        runs.append((t_prompt + t_prop, t_prompt, t_prop))
+    with window_sync_errors(predictor):
+        for _ in range(REPEATS):
+            (masks, t_prompt, t_prop), launches = read_counts(lambda: run_main_path(predictor, video, click))
+            log(f"  launches {launches}, expected {expected}")
+            if launches != expected:
+                raise AssertionError(f"launch counts {launches} != {expected}")
+            if predictor.graphs.captures != captures:
+                raise AssertionError("a second state of the same shape captured the frame body again")
+            runs.append((t_prompt + t_prop, t_prompt, t_prop))
     wall, t_prompt, t_prop = sorted(runs)[len(runs) // 2]
     log(f"  walls of the {len(runs)} runs (s): {[round(r[0], 4) for r in runs]}; median below")
     n = video.shape[0]
@@ -2158,8 +2241,57 @@ def hold_against_host(masks, ref) -> None:
             raise AssertionError(f"frame {f}: card and host disagree")
 
 
+def hold_graph_against_eager(gmasks, emasks, what, vs="graph vs eager body") -> None:
+    """Each frame of a graph run against the same run with the frame body
+    eager on the card (or another graph run, as ``vs`` says): the same
+    kernels on the same inputs, so the same bits are expected; gated at
+    logit rel-L2 and mask IoU outside the bf16 band."""
+    same = worst = 0
+    for f in sorted(emasks):
+        a, b = gmasks[f].astype("float64"), emasks[f].astype("float64")
+        same += int((gmasks[f] == emasks[f]).all())
+        d = float(abs(a - b).max())
+        worst = max(worst, d)
+        rel = float(((a - b) ** 2).sum() ** 0.5 / max(((b ** 2).sum()) ** 0.5, 1e-12))
+        clear = abs(b) > SIGN_BAND * float((b ** 2).mean()) ** 0.5
+        iou_clear = iou((a > 0) & clear, (b > 0) & clear)
+        if rel > GRAPH_REL_L2_TOL or iou_clear < GRAPH_MASK_IOU_TOL:
+            raise AssertionError(f"{what}, frame {f}: graph and eager disagree (rel-L2 {rel:.4e}, IoU {iou_clear:.5f})")
+    log(f"  {what}: {vs}, {same} of {len(emasks)} frames bit-identical, max |d| {worst:.4e} "
+        f"(gates rel-L2 <= {GRAPH_REL_L2_TOL}, IoU outside the band >= {GRAPH_MASK_IOU_TOL}) ok")
+
+
+def eager_runs(predictor, video, click, expected, gmasks, what):
+    """The same runs with the frame body eager on the card (``EagerBodies``
+    in place of the graphs), held against the graph run's masks; returns
+    the median propagation seconds. The graphs are put back after."""
+    graphs = predictor.graphs
+    predictor.graphs = EagerBodies()
+    try:
+        emasks, _, _, e_prop = timed_runs(predictor, video, click, expected)
+    finally:
+        predictor.graphs = graphs
+    hold_graph_against_eager(gmasks, emasks, what)
+    return e_prop
+
+
+def check_recapture_after_cast(predictor, video, click, masks, what) -> None:
+    """The weight matrices cast to f32 and back to bf16 (the same values in
+    new memory): the kept graph read the old memory, so the next window must
+    capture anew, and give the masks of before."""
+    import torch
+
+    captures = predictor.graphs.captures
+    predictor.model.set_compute_dtype(torch.float32).set_compute_dtype(torch.bfloat16)
+    again, _, _ = run_main_path(predictor, video, click)
+    if predictor.graphs.captures != captures + 1:
+        raise AssertionError(f"{what}: weights in new memory, but {predictor.graphs.captures - captures} "
+                             f"captures (1 expected)")
+    hold_graph_against_eager(again, masks, what, "graph after a cast round trip of the weights vs before")
+
+
 def run_propagation(name, builder, per_encoded, per_encoded_fused, label, fused_phase, card, profile_dir,
-                    iou_margin=None):
+                    iou_margin=None, precompute=0):
     """Propagation of the preset ``name`` at full width in bf16 through
     ``builder`` (the preset's predictor entry point) with seeded weights (the
     object-score head's output bias at +10; ``iou_margin`` = (output, margin)
@@ -2170,6 +2302,7 @@ def run_propagation(name, builder, per_encoded, per_encoded_fused, label, fused_
     import torch
 
     from us_video_medsam2_tpu_torch.core.build import build_sam2
+    from us_video_medsam2_tpu_torch.inference.graphs import MAX_GRAPHS
 
     model = build_sam2(name, seed=SEED)
     with torch.no_grad():
@@ -2185,6 +2318,8 @@ def run_propagation(name, builder, per_encoded, per_encoded_fused, label, fused_
     expected.update({k: v * n for k, v in per_encoded.items()})
     expected.update({k: v * (n - 1) for k, v in PER_TRACKED_FRAME.items()})
     masks, wall, t_prompt, t_prop = timed_runs(predictor, video, click, expected)
+    e_prop = eager_runs(predictor, video, click, expected, masks, f"{name}, default")
+    check_recapture_after_cast(predictor, video, click, masks, f"{name}, default")
     fg = [float((masks[f] > 0).mean()) for f in range(n)]
     log(f"  foreground fraction per frame: {[round(x, 4) for x in fg]}")
     log(f"  {n} frames in {wall:.3f} s: {n / wall:.2f} frames/s, {1e3 * wall / n:.2f} ms/frame "
@@ -2202,6 +2337,20 @@ def run_propagation(name, builder, per_encoded, per_encoded_fused, label, fused_
     log(f"  host run {time.perf_counter() - t0:.1f} s")
     hold_against_host(masks, ref)
     del cpu_pred
+    p_prop = None
+    if precompute:
+        # every frame encoded before the window in batches of `precompute`:
+        # the encoder's launches per batch, once more for the prompted frame
+        batches = -(-n // precompute)
+        log(f"  precompute_features_batch={precompute}: {batches} encoder batches before the window, "
+            f"plus the prompted frame's encode")
+        pre = builder(name, state_dict=host_sd, fill_hole_area=8, precompute_features_batch=precompute)
+        pre_expected = {k: 0 for k in counters()}
+        pre_expected.update({k: v * (1 + batches) for k, v in per_encoded.items()})
+        pre_expected.update({k: v * (n - 1) for k, v in PER_TRACKED_FRAME.items()})
+        pmasks, _, _, p_prop = timed_runs(pre, video, click, pre_expected)
+        hold_against_host(pmasks, ref)
+        del pre
 
     # the fused configuration: the same model, weights and video with both
     # opt-in kernels switched on. Memory encodings per run: the prompted frame
@@ -2217,20 +2366,32 @@ def run_propagation(name, builder, per_encoded, per_encoded_fused, label, fused_
     log(f"  {n} encoded frames, {n - 1} tracked, {n_mem} memory encodings per run")
     with fused_switches():
         fmasks, fwall, f_prompt, f_prop = timed_runs(predictor, video, click, fused_expected)
+        fe_prop = eager_runs(predictor, video, click, fused_expected, fmasks, f"{name}, fused")
+        if len(predictor.graphs.entries) > MAX_GRAPHS:
+            raise AssertionError(f"{len(predictor.graphs.entries)} graphs kept (at most {MAX_GRAPHS})")
         if profile_dir:
             profile_run(lambda: run_main_path(predictor, video, click), f"{label}_fused", profile_dir, fwall)
     hold_against_host(fmasks, ref)
+
+    def ms(seconds):
+        return f"{1e3 * seconds / (n - 1):.2f}"
+
     log(f"  ms per tracked frame (host clock, median of {REPEATS}; for information), {name}: switches off "
-        f"{1e3 * t_prop / (n - 1):.2f}, on {1e3 * f_prop / (n - 1):.2f}; init_state + prompt off "
-        f"{1e3 * t_prompt:.2f}, on {1e3 * f_prompt:.2f}; on {card}")
+        f"{ms(t_prop)}, on {ms(f_prop)}; init_state + prompt off {1e3 * t_prompt:.2f}, on "
+        f"{1e3 * f_prompt:.2f}; on {card}")
+    log(f"  ms per tracked frame, graph vs eager body (host clock, median of {REPEATS}), {name}: switches off "
+        f"{ms(t_prop)} vs {ms(e_prop)}, on {ms(f_prop)} vs {ms(fe_prop)}"
+        + (f"; precompute_features_batch={precompute} (graph) {ms(p_prop)}" if precompute else "")
+        + f"; on {card}")
     return {"default": expected, "fused": fused_expected}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile a propagation run of each model with the switches off and one "
-                         "with them on, and one training step; Chrome traces into DIR")
+                    help="also profile a propagation run (graph replays) of each model with the switches "
+                         "off and one with them on, with each run's idle share, and one training step; "
+                         "Chrome traces into DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -2288,7 +2449,8 @@ def main(argv=None) -> int:
     # 4-5. the main path: sam2.1_hiera_t512, switches off, then on
     log("[4/8] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
     t512 = run_propagation("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME,
-                           PER_ENCODED_FRAME_FUSED, "main_path", "[5/8]", card, args.profile)
+                           PER_ENCODED_FRAME_FUSED, "main_path", "[5/8]", card, args.profile,
+                           precompute=PRECOMPUTE_BATCH)
 
     # 6. EfficientMedSAM-S: the same, through the EfficientTAM entry point
     log("[6/8] EfficientMedSAM-S: efficientmedsam_s_512, bf16, seeded weights and video")

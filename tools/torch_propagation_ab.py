@@ -2,6 +2,7 @@
 """Propagation time per tracked frame of several checkouts of the PyTorch port, in turns (one GPU).
 
     python3 tools/torch_propagation_ab.py TREE [TREE ...] [--repeats 5] [--models NAME ...]
+        [--configs default fused] [--no-window]
 
 Each TREE is the root of a checkout (for an A/B in turns: the parent, the
 change, the change, the parent). For each, in the order given, a fresh
@@ -10,19 +11,30 @@ that tree's ``window_attention`` wrapper alone at every geometry the two
 models give it (B 1, hd 96 and 64, with the last-strip cut where the tree's
 wrapper takes ``real_h``, as its models call it): device ms per call from
 torch.profiler's kernel events (chip_smoke.device_ms). Then, for each
-model (default ``sam2.1_hiera_t512`` and ``efficientmedsam_s_512``), a
-fresh process of the same tree runs that tree's chip_smoke.py main path
-(bf16, seeded weights and video, ``init_state`` -> ``add_new_points_or_box``
--> ``propagate_in_video`` over 16 frames): one warm-up run, ``--repeats`` timed runs (host clock around
-propagation ending in ``synchronize``), then one run under torch.profiler.
-Prints one JSON line per tree: for each model the ms per tracked frame of
-each run and their median, the device busy time of the profiled run, and the
+model (default ``sam2.1_hiera_t512`` and ``efficientmedsam_s_512``) and
+configuration (``default``; ``fused``: the JAX package's two opt-in kernel
+switches set), a fresh process of the same tree runs that tree's
+chip_smoke.py main path (bf16, seeded weights and video, ``init_state`` ->
+``add_new_points_or_box`` -> ``propagate_in_video`` over 16 frames): one
+warm-up run (where a tree with the graph path captures its frame body),
+``--repeats`` timed runs (host clock around propagation ending in
+``synchronize``), then one run under torch.profiler, then two runs of a
+video one frame longer (a length not seen before: the first of them is
+where a tree with the graph path captures a graph for it). Prints one JSON line
+per tree: for each model and configuration the ms per tracked frame of each
+run and their median, the median wall of a whole run (init_state, prompt
+and propagation), the ms per tracked frame of the two runs of the new
+length and the seconds of the capture made in them, the device busy time of the profiled run and its idle
+share against that wall, the seconds and pool bytes of the warm-up's
+captures (where the tree has them), and the
 device time of the kernels whose name holds "flash", of those whose name
 holds "ln_mlp_residual" (also by D, the kernels' first template argument,
 with the launches of the MLP's main kernel at that D) and of the window
 attention kernel (by head dim, its first template argument, with its
-launches); then the per-geometry window-attention times; and the card's
-name and power limit. Needs a CUDA device; about 100 s a tree.
+launches), and the 40 kernels of most device time (ms, launches, name);
+then the per-geometry window-attention times; and the card's
+name and power limit. ``--no-window`` leaves the window-attention times
+out. Needs a CUDA device; about 100 s a tree.
 """
 
 from __future__ import annotations
@@ -34,7 +46,7 @@ import subprocess
 import sys
 
 CHILD = r"""
-import inspect, json, re, statistics, sys
+import inspect, json, os, re, statistics, sys
 import torch
 from torch.profiler import ProfilerActivity, profile
 import chip_smoke as c
@@ -43,7 +55,9 @@ from us_video_medsam2_tpu_torch.inference.video_predictor import SAM2VideoPredic
 from us_video_medsam2_tpu_torch.kernels import _lib
 from us_video_medsam2_tpu_torch.kernels import window_attention as wa
 
-repeats, what = int(sys.argv[1]), sys.argv[2]
+repeats, what, config = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+if config == "fused":
+    os.environ.update({k: "1" for k in c.FUSED_SWITCHES})
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 _lib.build()
@@ -69,14 +83,23 @@ else:
     predictor = SAM2VideoPredictor(model, fill_hole_area=8)
     video, click, _ = c.make_video(c.FRAMES, model.cfg.image_size, c.SEED)
     c.run_main_path(predictor, video, click)  # warm-up
-    per_frame = []
+    graphs = getattr(predictor, "graphs", None)  # none in a tree without the graph path
+    captured = list(graphs.entries.values()) if graphs else []
+    per_frame, walls = [], []
     for _ in range(repeats):
-        _, _, t_prop = c.run_main_path(predictor, video, click)
+        _, t_prompt, t_prop = c.run_main_path(predictor, video, click)
         per_frame.append(1e3 * t_prop / (c.FRAMES - 1))
+        walls.append(1e3 * (t_prompt + t_prop))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         c.run_main_path(predictor, video, click)
+    # a video of a length not seen before (one frame longer), twice: the first
+    # window captures a graph of its own (in a tree with the graph path)
+    video2, click2, _ = c.make_video(c.FRAMES + 1, model.cfg.image_size, c.SEED)
+    known = set(graphs.entries) if graphs else set()
+    new_length = [1e3 * c.run_main_path(predictor, video2, click2)[2] / c.FRAMES for _ in range(2)]
+    new_captures = [g.capture_s for k, g in graphs.entries.items() if k not in known] if graphs else []
     busy = flash = mlp = 0.0
-    mlp_by_d, win_by_hd = {}, {}
+    mlp_by_d, win_by_hd, by_kernel = {}, {}, []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -84,6 +107,7 @@ else:
         if us is None:
             us = e.self_cuda_time_total
         busy += us
+        by_kernel.append((us / 1e3, e.count, e.key[:90]))
         if "flash" in e.key:
             flash += us
         if "ln_mlp_residual" in e.key:
@@ -98,13 +122,21 @@ else:
             by = win_by_hd.setdefault(int(hd.group(1)), {"device_ms": 0.0, "calls": 0})
             by["device_ms"] += us / 1e3
             by["calls"] += e.count
-    result = {what: {"ms_per_tracked_frame": per_frame, "median_ms": statistics.median(per_frame),
+    wall = statistics.median(walls)
+    result = {f"{what} {config}": {
+                     "ms_per_tracked_frame": per_frame, "median_ms": statistics.median(per_frame),
+                     "median_wall_ms": wall, "idle_share": 1 - busy / 1e3 / wall,
+                     "capture_s": [g.capture_s for g in captured],
+                     "new_length_ms_per_tracked_frame": new_length,
+                     "new_length_capture_s": new_captures,
+                     "graph_pool_mib": [g.pool_bytes / 2**20 for g in captured],
                      "device_busy_ms": busy / 1e3, "flash_device_ms": flash / 1e3, "mlp_device_ms": mlp / 1e3,
                      "mlp_device_ms_per_call_by_d": {d: v["device_ms"] / max(v["calls"], 1)
                                                       for d, v in sorted(mlp_by_d.items())},
                      "mlp_calls_by_d": {d: v["calls"] for d, v in sorted(mlp_by_d.items())},
                      "window_device_ms_by_hd": {h: v["device_ms"] for h, v in sorted(win_by_hd.items())},
-                     "window_calls_by_hd": {h: v["calls"] for h, v in sorted(win_by_hd.items())}}}
+                     "window_calls_by_hd": {h: v["calls"] for h, v in sorted(win_by_hd.items())},
+                     "top_kernels": sorted(by_kernel, reverse=True)[:40]}}
 print(json.dumps(result))
 """
 
@@ -114,6 +146,8 @@ def main(argv=None) -> int:
     ap.add_argument("trees", nargs="+", help="checkout roots, run in this order")
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--models", nargs="+", default=["sam2.1_hiera_t512", "efficientmedsam_s_512"])
+    ap.add_argument("--configs", nargs="+", default=["default", "fused"], choices=["default", "fused"])
+    ap.add_argument("--no-window", action="store_true", help="leave the window-attention times out")
     args = ap.parse_args(argv)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -125,12 +159,14 @@ def main(argv=None) -> int:
         root = os.path.abspath(tree)
         env = dict(os.environ, PYTHONPATH=root)
         result = {"tree": tree}
-        for what in ["window", *args.models]:  # one process each: a second profile in a process loses kernels
-            out = subprocess.run([sys.executable, "-c", CHILD, str(args.repeats), what], cwd=root, env=env,
+        runs = [] if args.no_window else [("window", "default")]
+        runs += [(m, cfg) for m in args.models for cfg in args.configs]
+        for what, cfg in runs:  # one process each: a second profile in a process loses kernels
+            out = subprocess.run([sys.executable, "-c", CHILD, str(args.repeats), what, cfg], cwd=root, env=env,
                                  capture_output=True, text=True)
             if out.returncode != 0:
                 print(out.stdout + out.stderr, file=sys.stderr)
-                raise RuntimeError(f"{tree}: {what} failed")
+                raise RuntimeError(f"{tree}: {what} {cfg} failed")
             result.update(json.loads(out.stdout.strip().splitlines()[-1]))
         print(json.dumps(result), flush=True)
     print(card.stdout.strip().splitlines()[0], flush=True)

@@ -1,0 +1,220 @@
+"""The predictor's frame body, and its CUDA graphs.
+
+Counterpart of the body of the JAX predictor's ``lax.scan``
+(``inference/video_predictor.py``, ``_propagate_impl``): ``frame_body`` reads
+one frame's features, runs ``SAM2Model.track_step`` (memory write included)
+and writes the frame's low-res logits into its row of a ``[F, O, 4·fs,
+4·fs]`` buffer. Everything it reads or writes lies in a ``FrameBuffers`` at
+fixed addresses, and the frame index is a 0-d long tensor there, so one
+capture of the body serves every frame of the window: the host writes the
+index (``fill_``) and, where the body encodes its own frame, copies the frame
+in, then replays. On the CPU the predictor calls the same body eagerly.
+
+``FrameGraph`` holds one capture. Before capturing it runs the body once
+eagerly on a side stream (as ``torch.cuda.graphs`` asks): capture executes
+nothing, so every table that comes into being at first use (the position
+tables of ``ops/posenc.py``, the ViTDet pos-embed table, cuBLAS and cuDNN
+state) must exist before it. The kernels' launch counters are Python-side:
+they tick once at capture and never at replay. A graph records the counts
+its capture ticked, takes them back off, and adds them on every replay, so a
+counter keeps meaning launches that the device ran. A failed capture or
+replay raises; nothing falls back to the eager body on the card.
+
+A graph reads the weights by address. It keeps each weight tensor it read
+alive, so no other tensor takes that memory while it lives, with the
+tensor's version then; ``FrameGraphs`` drops every graph once a weight has
+other memory or another version (an in-place update, ``.data =``, a cast).
+It keeps at most ``MAX_GRAPHS``, the last used.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+
+from us_video_medsam2_tpu_torch.kernels import _lib
+from us_video_medsam2_tpu_torch.models.memory_bank import MemoryBank
+
+# graphs a predictor keeps: forward and reverse of one shape, or its two
+# kernel configurations; past that the least recently used is dropped
+MAX_GRAPHS = 2
+
+
+@dataclasses.dataclass
+class FrameBuffers:
+    """What the frame body reads and writes."""
+
+    t: torch.Tensor  # 0-d long: the frame index
+    bank: MemoryBank  # [O, F, ...]: the body reads it and writes row t
+    lows: torch.Tensor  # [F, O, 4fs, 4fs] f32 low-res logits: the body writes row t
+    frame: Optional[torch.Tensor]  # [1, S, S, 3] f32: the frame the body encodes, or
+    feats: Optional[Dict[str, torch.Tensor]]  # {top, s0, s1} [F, ...]: precomputed rows
+
+
+def encode_frames(model, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """images [B, S, S, 3] -> {'top'[, 's0', 's1']}: what ``track_step`` reads."""
+    fpn = model.forward_image(images)["backbone_fpn"]
+    feats = {"top": fpn[-1]}
+    if model.cfg.use_high_res_features_in_sam:
+        feats["s0"], feats["s1"] = fpn[0], fpn[1]
+    return feats
+
+
+def feature_shapes(cfg) -> Dict[str, tuple]:
+    """Per-frame shapes of ``encode_frames``' outputs."""
+    fs, d = cfg.feat_size, cfg.hidden_dim
+    shapes = {"top": (fs, fs, d)}
+    if cfg.use_high_res_features_in_sam:
+        shapes["s0"], shapes["s1"] = (4 * fs, 4 * fs, d // 8), (2 * fs, 2 * fs, d // 4)
+    return shapes
+
+
+def make_buffers(model, bank: MemoryBank, precompute: bool, new_bank: bool) -> FrameBuffers:
+    """Buffers for ``bank``'s shape on its device; the bank itself unless
+    ``new_bank`` (then a zeroed bank of the same shape that the caller copies
+    a state's bank into)."""
+    cfg = model.cfg
+    o, nf = bank.valid.shape
+    dev = bank.valid.device
+    if new_bank:
+        bank = MemoryBank(*(torch.zeros_like(x) for x in bank_tensors(bank)))
+    lows = torch.zeros(nf, o, 4 * cfg.feat_size, 4 * cfg.feat_size, device=dev)
+    frame = feats = None
+    if precompute:
+        feats = {k: torch.zeros((nf, *s), dtype=model.dtype, device=dev) for k, s in feature_shapes(cfg).items()}
+    else:
+        frame = torch.zeros(1, cfg.image_size, cfg.image_size, 3, device=dev)
+    return FrameBuffers(torch.zeros((), dtype=torch.long, device=dev), bank, lows, frame, feats)
+
+
+def frame_body(model, bufs: FrameBuffers, num_frames: int, reverse: bool, max_cond_slots: int) -> None:
+    """One tracked frame: features of frame ``bufs.t``, ``track_step`` with
+    the memory encoder (its memory written into ``bufs.bank``), the chosen
+    low-res logits into row ``bufs.t`` of ``bufs.lows``."""
+    t = bufs.t.reshape(1)
+    if bufs.frame is not None:
+        feats1 = encode_frames(model, bufs.frame)
+    else:
+        feats1 = {k: v.index_select(0, t) for k, v in bufs.feats.items()}
+    o = bufs.lows.shape[1]
+    feats = {k: v.expand(o, -1, -1, -1) for k, v in feats1.items()}
+    out, _ = model.track_step(bufs.t, feats, bufs.bank, num_frames, multimask_output=True,
+                              track_in_reverse=reverse, max_cond_slots=max_cond_slots)
+    bufs.lows.index_copy_(0, t, out["low_res_masks"][:, 0].float()[None])
+
+
+def bank_tensors(bank: MemoryBank) -> tuple:
+    # not dataclasses.astuple, which returns deep copies
+    return tuple(getattr(bank, f.name) for f in dataclasses.fields(bank))
+
+
+def copy_bank(dst: MemoryBank, src: MemoryBank) -> None:
+    for d, s in zip(bank_tensors(dst), bank_tensors(src)):
+        d.copy_(s)
+
+
+def read_counts() -> Dict[Callable, int]:
+    return {w: w.launches for w in _lib.COUNTED.values()}
+
+
+def weight_tensors(model) -> list:
+    """What a captured body reads of the model: its parameters and buffers."""
+    return list(model.parameters()) + list(model.buffers())
+
+
+def _version(w: torch.Tensor) -> Optional[int]:
+    return None if w.is_inference() else w._version  # inference tensors keep no version
+
+
+class FrameGraph:
+    """One captured frame body over its buffers, with the launches it
+    captured (by wrapper), the seconds its warm-up and capture took and the
+    bytes its memory pool holds."""
+
+    def __init__(self, bufs: FrameBuffers, weights: Sequence[torch.Tensor] = ()):
+        self.bufs = bufs
+        # the weights its capture reads, held so that their memory stays
+        # theirs, with their versions then
+        self.weights = [(w.detach(), _version(w)) for w in weights]
+        self.graph = None
+        self.counts: Dict[Callable, int] = {}
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+
+    def warm_up_and_capture(self, body: Callable[[], None]) -> None:
+        dev = self.bufs.t.device
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        self.capture(body)
+        torch.cuda.synchronize(dev)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.capture_s = time.perf_counter() - t0
+
+    def capture(self, body: Callable[[], None], new_graph=torch.cuda.CUDAGraph,
+                graph_context=torch.cuda.graph) -> None:
+        """Capture ``body`` (warmed up already); the counters it ticked are
+        recorded and taken back off."""
+        before = read_counts()
+        graph = new_graph()
+        try:
+            with graph_context(graph):
+                body()
+        finally:
+            after = read_counts()
+            for w, n in before.items():
+                w.launches = n
+        self.counts = {w: after[w] - n for w, n in before.items() if after[w] != n}
+        self.graph = graph
+
+    def reads(self, weights: Sequence[torch.Tensor]) -> bool:
+        """Whether ``weights`` are still the tensors this graph read, unchanged."""
+        return len(weights) == len(self.weights) and all(
+            w.device == held.device and w.data_ptr() == held.data_ptr() and _version(w) == v
+            for w, (held, v) in zip(weights, self.weights))
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for w, n in self.counts.items():
+            w.launches += n
+
+
+class FrameGraphs:
+    """A predictor's graphs: one ``FrameGraph`` a key, made at the first
+    window of that key and kept for later states of the same shape (the
+    predictor copies a state's bank in before its window and out after).
+    At most ``MAX_GRAPHS`` are kept, the last used; all are dropped when
+    the weights they read change. A dropped graph's memory pool goes back
+    to the allocator, and the capture that follows every drop returns it to
+    the card (``warm_up_and_capture`` empties the cache). ``captures`` counts
+    the captures made."""
+
+    def __init__(self):
+        self.entries: "collections.OrderedDict[tuple, FrameGraph]" = collections.OrderedDict()
+        self.captures = 0
+
+    def get(self, key: tuple, make: Callable[[], FrameBuffers], body: Callable[[FrameBuffers], None],
+            weights: Sequence[torch.Tensor] = ()) -> FrameGraph:
+        if not all(g.reads(weights) for g in self.entries.values()):
+            self.entries.clear()
+        g = self.entries.get(key)
+        if g is not None:
+            self.entries.move_to_end(key)
+            return g
+        while len(self.entries) >= MAX_GRAPHS:
+            self.entries.popitem(last=False)
+        g = FrameGraph(make(), weights)
+        g.warm_up_and_capture(lambda: body(g.bufs))
+        self.entries[key] = g
+        self.captures += 1
+        return g

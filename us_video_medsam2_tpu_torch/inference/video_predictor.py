@@ -1,9 +1,8 @@
 """Interactive video predictor: init_state, add_new_points_or_box, propagate_in_video.
 
 Counterpart of the JAX package's ``inference/video_predictor.py`` (reference
-sam2/sam2_video_predictor_npz.py) for its main path. The per-frame loop is an
-eager Python loop over ``SAM2Model.track_step``; the memory bank is the same
-fixed-shape store (bf16 spatial memories, f32 object pointers) with a
+sam2/sam2_video_predictor_npz.py) for its main path. The memory bank is the
+same fixed-shape store (bf16 spatial memories, f32 object pointers) with a
 validity mask. Workflow as in the JAX package:
 
 - a prompt call runs track_step without the memory encoder; prompted frames'
@@ -11,10 +10,22 @@ validity mask. Workflow as in the JAX package:
   points binarized (the reference's consolidation, predictor:593-660). The
   prompted frame's features are kept from the prompt call for that encode;
 - every object is a batch row sharing the frame's features;
-- hole filling (``fill_hole_area``) applies to each tracked frame's low-res
-  logits after its memory was encoded (misc.py:312-339).
+- propagation runs the tracking window first; then, ``EMIT_CHUNK`` tracked
+  frames at a time, it fills holes (``fill_hole_area``) in one pass over
+  the chunk's low-res logits of every object (misc.py:312-339), resizes them
+  to the video resolution, copies them to the host, and yields.
 
-Bucketing, host offload, object removal and prompt clearing are not ported yet.
+The window is the JAX predictor's one-program propagation (``lax.scan``
+over ``_propagate_impl``'s body): each tracked frame is one call of
+``graphs.frame_body`` with the frame index as a 0-d device tensor. On a CUDA
+device that call is one replay of a CUDA graph of the body, and the host
+does not wait on the device until the window has run; on the CPU the body
+runs eagerly. ``precompute_features_batch`` has the JAX meaning: 0 or 1, the
+body encodes its own frame; N > 1, every frame of the state is encoded in
+batches of N before the window and the body reads its row.
+
+Bucketing, host offload, chunked streaming, object removal and prompt
+clearing are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +39,18 @@ import torch
 from us_video_medsam2_tpu_torch.core.build import build_sam2
 from us_video_medsam2_tpu_torch.core.config import SAM2Config
 from us_video_medsam2_tpu_torch.core.device import resolve_device
+from us_video_medsam2_tpu_torch.core.switches import (
+    fused_cxblock_enabled,
+    fused_qkv_window_attention_enabled,
+)
+from us_video_medsam2_tpu_torch.inference.graphs import (
+    FrameGraphs,
+    copy_bank,
+    encode_frames,
+    frame_body,
+    make_buffers,
+    weight_tensors,
+)
 from us_video_medsam2_tpu_torch.inference.transforms import (
     preprocess_images,
     transform_boxes,
@@ -39,6 +62,7 @@ from us_video_medsam2_tpu_torch.ops.connected_components import fill_holes_in_ma
 from us_video_medsam2_tpu_torch.ops.resize import resize2d
 
 NO_OBJ_SCORE = -1024.0
+EMIT_CHUNK = 16  # frames hole-filled, resized to the video resolution and copied to the host at once
 
 
 @dataclasses.dataclass
@@ -69,11 +93,15 @@ class VideoPredictorState:
 
 class SAM2VideoPredictor:
     def __init__(self, model: SAM2Model, fill_hole_area: int = 8,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", precompute_features_batch: int = 0):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg: SAM2Config = model.cfg
         self.fill_hole_area = fill_hole_area
+        # 0/1: the frame body encodes its frame; N > 1: every frame is encoded
+        # in batches of N before the window
+        self.precompute_batch = precompute_features_batch
+        self.graphs = FrameGraphs()  # the frame body's CUDA graphs, by key
 
     # ------------------------------------------------------------- state mgmt
     @torch.inference_mode()
@@ -93,15 +121,14 @@ class SAM2VideoPredictor:
                                    max_objects=max_objects, bank=bank)
 
     def _encode_frame(self, state: VideoPredictorState, t: int) -> Dict[str, torch.Tensor]:
-        fpn = self.model.forward_image(state.images[t: t + 1])["backbone_fpn"]
-        feats = {"top": fpn[-1]}
-        if self.cfg.use_high_res_features_in_sam:
-            feats["s0"], feats["s1"] = fpn[0], fpn[1]
-        return feats
+        return encode_frames(self.model, state.images[t: t + 1])
 
     @staticmethod
     def _to_video_res(low_res: torch.Tensor, hw) -> torch.Tensor:
-        return resize2d(low_res[..., None].float(), hw)[..., 0]
+        """[..., h, w] logits -> [..., H, W] f32 (bilinear)."""
+        lead = low_res.shape[:-2]
+        x = low_res.reshape(-1, *low_res.shape[-2:])
+        return resize2d(x[..., None].float(), hw)[..., 0].reshape(*lead, *hw)
 
     # -------------------------------------------------------------- prompting
     @torch.inference_mode()
@@ -191,7 +218,8 @@ class SAM2VideoPredictor:
     def propagate_in_video(self, state: VideoPredictorState, start_frame_idx: Optional[int] = None,
                            max_frame_num_to_track: Optional[int] = None, reverse: bool = False
                            ) -> Iterator[Tuple[int, List[int], np.ndarray]]:
-        """Yields (frame_idx, obj_ids, video_res_mask_logits [O, 1, H, W] numpy)."""
+        """Yields (frame_idx, obj_ids, video_res_mask_logits [O, 1, H, W] numpy)
+        in tracking order, once the whole window has run."""
         self.propagate_in_video_preflight(state)
         cond_frames = sorted(state.cond_low_res)
         if not cond_frames:
@@ -207,35 +235,83 @@ class SAM2VideoPredictor:
         hw = (state.video_height, state.video_width)
         # with N prompted frames only N conditioning slots can ever be valid
         mcs = max(1, min(self.cfg.max_cond_frame_slots, len(cond_frames)))
-        o = state.max_objects
-        bank = state.bank
+        # the tracking window is (t0, end]; prompted frames keep their output
+        ran = [t for t in order if t not in state.cond_low_res and t != t0]
+        if ran:
+            lo = min(ran)
+            # off the graph's buffer, which the next window writes
+            lows = self._run_window(state, ran, reverse, mcs)[lo: max(ran) + 1].clone()
+        chunk, c0 = None, 0
         for t in order:
-            if t in state.cond_low_res:  # a prompted frame: its output is kept
-                low = state.cond_low_res[t]
-                yield t, list(state.obj_ids), self._to_video_res(low, hw).cpu().numpy()[:, None]
+            if t in state.cond_low_res:
+                video = self._to_video_res(state.cond_low_res[t], hw).cpu().numpy()
+            elif t != t0:
+                # hole-filled, resized and copied to the host EMIT_CHUNK frames at a
+                # time: the hole filling's memory is bounded by the chunk, not the video
+                if chunk is None or not c0 <= t - lo < c0 + len(chunk):
+                    c0 = (t - lo) // EMIT_CHUNK * EMIT_CHUNK
+                    filled = fill_holes_in_mask_scores(lows[c0: c0 + EMIT_CHUNK], self.fill_hole_area)
+                    chunk = self._to_video_res(filled, hw).cpu().numpy()
+                video = chunk[t - lo - c0]
+                state.frames_tracked.add(t)
+            else:
                 continue
-            if t == t0:  # the tracking window is (t0, end]
-                continue
-            feats = {k: v.expand(o, -1, -1, -1) for k, v in self._encode_frame(state, t).items()}
-            out, _ = self.model.track_step(
-                t, feats, bank, nf, multimask_output=True, track_in_reverse=reverse,
-                max_cond_slots=mcs,
+            yield t, list(state.obj_ids), video[:, None]
+
+    def _graph_key(self, state: VideoPredictorState, reverse: bool, mcs: int) -> tuple:
+        """What a captured frame body depends on beyond its buffers' contents:
+        shapes, direction, the encoding mode, the two switches (read when
+        the body runs, so at capture) and the compute dtype."""
+        return (state.num_frames, state.max_objects, mcs, reverse, self.precompute_batch > 1,
+                fused_cxblock_enabled(), fused_qkv_window_attention_enabled(), self.model.dtype)
+
+    def _run_window(self, state: VideoPredictorState, frames: List[int], reverse: bool,
+                    mcs: int) -> torch.Tensor:
+        """The frame body for each of ``frames`` in order; returns the
+        [F, O, 4fs, 4fs] low-res logits, row t written for each t run. On the
+        card each frame is one graph replay and nothing waits on the device."""
+        model, nf = self.model, state.num_frames
+        precompute = self.precompute_batch > 1
+        on_card = self.device.type == "cuda"
+        if on_card:
+            graph = self.graphs.get(
+                self._graph_key(state, reverse, mcs),
+                lambda: make_buffers(model, state.bank, precompute, new_bank=True),
+                lambda b: frame_body(model, b, nf, reverse, mcs),
+                weight_tensors(model),
             )
-            low = out["low_res_masks"][:, 0]
-            if self.fill_hole_area > 0:
-                low = fill_holes_in_mask_scores(low, self.fill_hole_area)
-            state.frames_tracked.add(t)
-            yield t, list(state.obj_ids), self._to_video_res(low, hw).cpu().numpy()[:, None]
+            bufs = graph.bufs
+        else:
+            bufs = make_buffers(model, state.bank, precompute, new_bank=False)
+        if precompute:
+            n = self.precompute_batch
+            for s in range(0, nf, n):
+                for k, v in encode_frames(model, state.images[s: s + n]).items():
+                    bufs.feats[k][s: s + n].copy_(v)
+        if on_card:
+            copy_bank(bufs.bank, state.bank)
+        for t in frames:
+            bufs.t.fill_(t)
+            if bufs.frame is not None:
+                bufs.frame.copy_(state.images[t: t + 1])
+            if on_card:
+                graph.replay()
+            else:
+                frame_body(model, bufs, nf, reverse, mcs)
+        if on_card:
+            copy_bank(state.bank, bufs.bank)
+        return bufs.lows
 
 
 def build_sam2_video_predictor(config="sam2.1_hiera_t512", state_dict=None, device="cuda",
                                dtype=torch.bfloat16, seed: int = 0, fill_hole_area: int = 8,
-                               **overrides):
+                               precompute_features_batch: int = 0, **overrides):
     """Build the model (weights from ``state_dict``, else made from ``seed``),
     move it to ``device`` in compute ``dtype`` and wrap it in the predictor."""
     dev = resolve_device(device)
     model = build_sam2(config, state_dict, seed=seed, **overrides)
-    return SAM2VideoPredictor(model.to(dev).set_compute_dtype(dtype), fill_hole_area, device=dev)
+    return SAM2VideoPredictor(model.to(dev).set_compute_dtype(dtype), fill_hole_area, device=dev,
+                              precompute_features_batch=precompute_features_batch)
 
 
 def build_efficienttam_video_predictor(config="efficientmedsam_s_512", state_dict=None, device="cuda",

@@ -128,6 +128,19 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
+# every kernel wrapper imported so far, by name: its ``launches`` adds one
+# where it launches its kernel, and nowhere else. Each wrapper's module
+# registers it (``counted``) when it is imported.
+COUNTED: dict = {}
+
+
+def counted(wrapper):
+    """Register ``wrapper`` in ``COUNTED`` with its launch count at 0."""
+    wrapper.launches = 0
+    COUNTED[wrapper.__name__] = wrapper
+    return wrapper
+
+
 def stream_ptr(t) -> int:
     """The current ``cudaStream_t`` of t's device, without making a
     ``torch.cuda.Stream`` object."""

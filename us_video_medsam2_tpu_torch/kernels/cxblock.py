@@ -229,5 +229,5 @@ def card_occupancy(splits: int) -> tuple[int, int, int]:
     return n[0].value, n[1].value, n[2].value
 
 
-cxblock.launches = 0
+_lib.counted(cxblock)
 _fn = None  # usm_cxblock_bf16, bound at the first launch

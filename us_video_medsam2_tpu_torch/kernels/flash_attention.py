@@ -137,5 +137,5 @@ def _kernel(q, k, v, key_mask):
     return out
 
 
-flash_attention.launches = 0
+_lib.counted(flash_attention)
 _fn = None  # usm_flash_attention_bf16, bound at the first launch

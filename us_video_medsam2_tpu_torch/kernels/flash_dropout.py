@@ -360,8 +360,8 @@ def flash_dropout_bwd(q, k, v, key_mask, seed: int, rate: float, out, lse, g):
 
 
 _fwd_fn = _bwd_fn = None  # the C entry points, bound at their first launch
-flash_dropout_fwd.launches = 0
-flash_dropout_bwd.launches = 0
+_lib.counted(flash_dropout_fwd)
+_lib.counted(flash_dropout_bwd)
 
 
 class _FlashTrain(torch.autograd.Function):

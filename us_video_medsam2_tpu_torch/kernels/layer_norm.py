@@ -73,4 +73,4 @@ def _kernel(x, weight, bias, eps):
 
 
 _fn = None  # usm_layer_norm_bf16, bound at the first launch
-layer_norm.launches = 0
+_lib.counted(layer_norm)

@@ -165,5 +165,5 @@ def blocks_per_sm(d: int, split: bool) -> int:
     return n.value
 
 
-ln_mlp_residual.launches = 0
+_lib.counted(ln_mlp_residual)
 _fn = None  # usm_ln_mlp_residual_bf16, bound at the first launch

@@ -338,5 +338,5 @@ def card_occupancy(hd: int, ws: int, q_pool: bool, plan: Plan) -> tuple[int, int
     return n[0].value, n[1].value, n[2].value
 
 
-qkv_window_attention.launches = 0
+_lib.counted(qkv_window_attention)
 _fn = None  # usm_qkv_window_attention_bf16, bound at the first launch

@@ -450,7 +450,7 @@ def card_occupancy(ws: int, q_pool: bool, c: int, ln: bool, plan: Plan) -> tuple
     return tuple(v.value for v in n)
 
 
-window_attention_v1.launches = 0
+_lib.counted(window_attention_v1)
 _fn = None  # usm_window_attention_v1_bf16, bound at the first launch
 
 

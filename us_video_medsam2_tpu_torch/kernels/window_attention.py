@@ -229,5 +229,5 @@ def card_blocks_per_sm(hd: int, ws: int, warps: int) -> int:
     return n.value
 
 
-window_attention.launches = 0
+_lib.counted(window_attention)
 _fn = None  # usm_window_attention_bf16, bound at the first launch

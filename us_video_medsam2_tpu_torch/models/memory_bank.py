@@ -6,6 +6,12 @@ frame, and per-frame selection is an index computation + gather + validity
 mask. Key layout fed to memory attention, always in this order:
 [cond-frame slots (K) | non-cond slots (num_maskmem - 1) | object pointers].
 ``write_memory`` updates the bank in place (the JAX version returns a copy).
+
+The frame index is an int or a 0-d ``torch.long`` tensor on the bank's device
+(JAX traces it): with a tensor, selection and write are device ops only, so
+a captured frame body (``inference/graphs.py``) serves every frame. Indexing
+with a 0-d tensor (``bank.valid[:, t]``) would read it back to the host, so
+the tensor form writes through ``index_copy_`` / ``index_fill_``.
 """
 
 from __future__ import annotations
@@ -41,9 +47,16 @@ def init_memory_bank(batch, num_frames, mem_hw, mem_dim, hidden_dim, dtype=torch
     )
 
 
-def write_memory(bank: MemoryBank, frame_idx: int, maskmem: torch.Tensor,
+def write_memory(bank: MemoryBank, frame_idx: int | torch.Tensor, maskmem: torch.Tensor,
                  obj_ptr: torch.Tensor, is_cond: bool) -> MemoryBank:
     """Store frame_idx's memory ([B, Hm*Wm, mem_dim], [B, C]) in place."""
+    if isinstance(frame_idx, torch.Tensor):
+        t = frame_idx.reshape(1)
+        bank.maskmem.index_copy_(1, t, maskmem.to(bank.maskmem.dtype)[:, None])
+        bank.obj_ptr.index_copy_(1, t, obj_ptr.to(bank.obj_ptr.dtype)[:, None])
+        bank.valid.index_fill_(1, t, True)
+        bank.is_cond.index_fill_(1, t, bool(is_cond))
+        return bank
     bank.maskmem[:, frame_idx] = maskmem.to(bank.maskmem.dtype)
     bank.obj_ptr[:, frame_idx] = obj_ptr.to(bank.obj_ptr.dtype)
     bank.valid[:, frame_idx] = True
@@ -62,7 +75,7 @@ class MemorySelection:
     t_diff_max: int  # pointer sine-embedding normalizer
 
 
-def select_memories(bank: MemoryBank, frame_idx: int, cfg: SAM2Config, num_frames: int,
+def select_memories(bank: MemoryBank, frame_idx: int | torch.Tensor, cfg: SAM2Config, num_frames: int,
                     track_in_reverse: bool = False, max_cond_slots: int | None = None,
                     is_training: bool = False) -> MemorySelection:
     """The reference's memory-frame selection (sam2_base.py:1296-1422) as a
@@ -71,7 +84,9 @@ def select_memories(bank: MemoryBank, frame_idx: int, cfg: SAM2Config, num_frame
     follow the stride-r schedule (r = 1 in training); pointer slots cover the
     last min(num_frames, max_obj_ptrs) frames (conditioning pointers only from
     the past at eval, if so configured). Conditioning frames that did not
-    make the top K stay eligible as non-conditioning memories and pointers."""
+    make the top K stay eligible as non-conditioning memories and pointers.
+    ``frame_idx`` is an int or a 0-d long tensor on the bank's device;
+    ``num_frames`` stays an int (it sets the pointer slots' shape)."""
     B, S = bank.valid.shape
     dev = bank.valid.device
     K = max(min(cfg.max_cond_frame_slots if max_cond_slots is None else max_cond_slots, S), 1)
@@ -98,7 +113,7 @@ def select_memories(bank: MemoryBank, frame_idx: int, cfg: SAM2Config, num_frame
         last = frame_idx + 1
         base = -(-(frame_idx + 2) // r) * r
         strided = base + (t_rel - 2) * r
-    noncond_idx = torch.where(t_rel == 1, torch.full_like(strided, last), strided)
+    noncond_idx = torch.where(t_rel == 1, last, strided)
     noncond_idx = noncond_idx[None].expand(B, -1)
     in_range = (noncond_idx >= 0) & (noncond_idx < num_frames)
     safe = noncond_idx.clamp(0, S - 1)

@@ -95,13 +95,15 @@ class SAM2Model(nn.Module):
         return out
 
     # ------------------------------------------------------- memory attention
-    def condition_on_memory(self, frame_idx: int, curr_feat: torch.Tensor, bank: MemoryBank,
+    def condition_on_memory(self, frame_idx: int | torch.Tensor, curr_feat: torch.Tensor, bank: MemoryBank,
                             num_frames: int, track_in_reverse: bool = False,
                             max_cond_slots: int | None = None, is_training: bool = False,
                             deterministic: bool = True,
                             gen: torch.Generator | None = None) -> torch.Tensor:
         """Cross-attend the current frame to the memory bank (sam2_base.py:1271-1448).
-        ``gen`` draws the attention-dropout seeds when ``deterministic`` is False."""
+        ``frame_idx`` is an int or a 0-d long tensor on the bank's device
+        (``select_memories``). ``gen`` draws the attention-dropout seeds when
+        ``deterministic`` is False."""
         c = self.cfg
         dt = self.dtype
         b, h, w, ch = curr_feat.shape
@@ -274,7 +276,7 @@ class SAM2Model(nn.Module):
         return maskmem
 
     # --------------------------------------------------------------- one step
-    def track_step(self, frame_idx: int, feats: dict, bank: MemoryBank, num_frames: int,
+    def track_step(self, frame_idx: int | torch.Tensor, feats: dict, bank: MemoryBank, num_frames: int,
                    point_coords=None, point_labels=None, mask_inputs=None,
                    is_init_cond_frame=False, is_cond_frame=False,
                    multimask_output=False, track_in_reverse=False, run_mem_encoder=True,
@@ -283,7 +285,10 @@ class SAM2Model(nn.Module):
 
         feats: {'top': [B, Hc, Wc, C], 's0', 's1': decoder-projected high-res
         features}. With the memory encoder on, the frame's memory is written
-        into ``bank`` in place. Returns (out dict, bank)."""
+        into ``bank`` in place. ``frame_idx`` may be a 0-d long tensor on the
+        bank's device: then nothing from the inputs to the memory write reads
+        a value back to the host, and the step can be captured in a CUDA
+        graph (``inference/graphs.py``). Returns (out dict, bank)."""
         c = self.cfg
         hr = [feats["s0"], feats["s1"]] if c.use_high_res_features_in_sam else None
         if mask_inputs is not None and c.use_mask_input_as_output_without_sam:

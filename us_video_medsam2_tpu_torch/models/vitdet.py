@@ -42,13 +42,43 @@ class ViTDet(nn.Module):
             ws = cfg.window_size if i in cfg.window_block_indexes else 0
             self.add_module(f"blocks_{i}", MultiScaleBlock(c, c, cfg.num_heads, ws, None, cfg.mlp_ratio))
         self.last_global = max(i for i in range(cfg.depth) if i not in cfg.window_block_indexes)
+        # (map size, dtype) -> (pos_embed's tensor, its version, table): pos_embed_table's tables
+        self._pe_tables: dict = {}
+
+    def _resized_pos_embed(self, hw, dtype) -> torch.Tensor:
+        cfg = self.cfg
+        pe = self.pos_embed[:, 1:] if cfg.pretrain_use_cls_token else self.pos_embed
+        pe = resize2d(pe.float().reshape(1, self.grid, self.grid, cfg.embed_dim), hw, mode="cubic")
+        return pe.to(dtype)
+
+    def pos_embed_table(self, hw, dtype) -> torch.Tensor:
+        """[1, h, w, C] position embedding of the token map ``hw`` in ``dtype``:
+        the pretrain grid's embedding resized bicubically. It depends only on
+        the weights and the map size, so when no gradient is wanted it is made
+        once a map size and dtype and kept, with the parameter's tensor and
+        ``_version`` it was made from: an in-place update or another tensor
+        in the parameter (``.data =``, a cast) makes it anew. The source is
+        held, so its memory cannot pass to another tensor while the table
+        lives. The kept table is made outside ``torch.inference_mode()``, so a
+        later training step may save it for backward (as ``ops/posenc.py``'s
+        tables). With a gradient (training), or when the parameter is an
+        inference tensor (which has no version to key on), it is computed on
+        every call."""
+        p = self.pos_embed
+        if (torch.is_grad_enabled() and p.requires_grad) or p.is_inference():
+            return self._resized_pos_embed(hw, dtype)
+        key = (tuple(hw), dtype)
+        kept = self._pe_tables.get(key)
+        if (kept is None or kept[0].device != p.device or kept[0].data_ptr() != p.data_ptr()
+                or kept[1] != p._version):
+            with torch.inference_mode(False), torch.no_grad():
+                kept = self._pe_tables[key] = (p.detach(), p._version, self._resized_pos_embed(hw, dtype))
+        return kept[2]
 
     def forward(self, x: torch.Tensor, deterministic: bool = True) -> list[torch.Tensor]:
         cfg = self.cfg
         x = self.patch_embed(x)
-        pe = self.pos_embed[:, 1:] if cfg.pretrain_use_cls_token else self.pos_embed
-        pe = resize2d(pe.float().reshape(1, self.grid, self.grid, cfg.embed_dim), x.shape[1:3], mode="cubic")
-        x = (x + pe.to(x.dtype)).contiguous()
+        x = (x + self.pos_embed_table(tuple(x.shape[1:3]), x.dtype)).contiguous()
         outputs = []
         for i in range(cfg.depth):
             x = getattr(self, f"blocks_{i}")(x, deterministic)

@@ -6,8 +6,9 @@ reference's CUDA connected-components extension, sam2/utils/misc.py:312-339).
 of masked 8-neighbourhood min-propagation of linear indices, a flood of the
 pixels whose neighbourhood disagrees, and a (2A+1)² windowed count of pixels
 sharing the label. Neighbourhood min/max and dilation are 3x3 max-pools and
-the windowed count is one unfold, all exact on f32 labels (< 2^24, plus the
-2^30 sentinel).
+the windowed count runs one window row at a time over an unfold view (a
+[B, H, W, 2A+1] compare, never the whole [B, (2A+1)², H, W] window), all
+exact on f32 labels (< 2^24, plus the 2^30 sentinel).
 """
 
 from __future__ import annotations
@@ -43,11 +44,13 @@ def small_component_mask(fg: torch.Tensor, max_area: int) -> torch.Tensor:
     flood = mixed.float()
     for _ in range(a):
         flood = torch.maximum(_pool_max(flood) * fgf, flood)
-    # (2A+1)^2 window: same-label foreground pixels around each pixel
-    padded = F.pad(torch.where(fg, labels, torch.full_like(labels, -2.0))[:, None],
-                   (a, a, a, a), value=-2.0)
-    win = F.unfold(padded, 2 * a + 1).reshape(b, (2 * a + 1) ** 2, h, w)
-    samecount = (win == labels[:, None]).sum(1)
+    # (2A+1)^2 window: same-label foreground pixels around each pixel, a row
+    # of the window at a time
+    padded = F.pad(torch.where(fg, labels, torch.full_like(labels, -2.0)), (a, a, a, a), value=-2.0)
+    samecount = torch.zeros(b, h, w, dtype=torch.int32, device=fg.device)
+    for dy in range(2 * a + 1):
+        row = padded[:, dy: dy + h].unfold(2, 2 * a + 1, 1)  # [B, H, W, 2A+1] view
+        samecount += (row == labels[..., None]).sum(-1, dtype=torch.int32)
     return fg & (flood == 0) & (samecount <= max_area)
 
 
