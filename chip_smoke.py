@@ -188,7 +188,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    card with both switches set (exact qkv-window-attention and CXBlock
    counts), and on the host CPU (plain versions, f32): loss and
    whole-gradient agreement of each card step with the host's;
-8. each path's launch counts, the kernels line (launches summed over the
+8. the predictor's long-video and editing paths, ``sam2.1_hiera_t512`` at
+   full width in bf16, default switches, the seeded weights of phase 4:
+   (a) the weights written as a reference-name ``.pt`` (weights under
+   "model"; ``to_reference_state_dict``, this script's own inverse of the
+   port's importer) and a predictor built from it through ``ckpt_path=``:
+   phase 4's 16-frame run gives the seeded predictor's bits, frame by frame;
+   (b) a ``LONG_FRAMES``-frame uint8 study offloaded to the host
+   (``offload_video_to_host``, the raw bytes) and streamed
+   ``STREAM_CHUNK`` frames a chunk through page-locked buffers, each
+   chunk's window sync-free, every frame yielded in order, held against the
+   same video resident on the card (graph-vs-eager gate, the same bits
+   expected); peak device memory of each run, the offloaded peak at least
+   ``OFFLOAD_SAVING`` below the resident; a ``REPEAT_FRAMES``-frame video in
+   the same bucket with no new capture and its peak within
+   ``PEAK_SPREAD``; ms per tracked frame of both, and the idle share of a
+   profiled streamed run; (c) 37 and 50 frames with ``t_bucket="auto"``
+   (64 slots) in one capture, each held against its exact-shape session;
+   (d) three objects clicked on frames 0 and 8 of phase 4's video
+   (``non_overlap_masks`` and the scrub of non-conditioning memories on):
+   propagation, ``remove_object``, ``clear_all_prompts_in_frame`` on frame
+   8, a re-prompt with ``prev_low_res_mask``, propagation forward and in
+   reverse, every yielded frame of each object held against the same
+   sequence on the host CPU (plain versions, f32). Every run's launches are
+   phase 4's per encoded and per tracked frame (a capture's warm-up counts
+   as one frame of each);
+9. each path's launch counts, the kernels line (launches summed over the
    runs of both models), the card line, and the device line last.
 
 Exits non-zero without a result when no CUDA device is present or when the
@@ -307,6 +332,15 @@ PRECOMPUTE_BATCH = 8  # phase 4's run with precompute_features_batch
 GRAPH_REL_L2_TOL = 1e-3
 GRAPH_MASK_IOU_TOL = 0.999
 SEED = 0
+LONG_FRAMES = 1000  # phase 8 (b): the long study, offloaded and streamed
+REPEAT_FRAMES = 600  # a second length in LONG_FRAMES's bucket (1,024 slots)
+STREAM_CHUNK = 64
+WARM_FRAMES = 70  # the short runs that capture phase 8 (b)'s graphs outside its measured runs
+PROFILE_FRAMES = 128  # the profiled streamed run (two chunks)
+LONG_BUCKET = 1024
+OFFLOAD_SAVING = 2.5e9  # bytes the offloaded run's peak must lie below the resident run's
+PEAK_SPREAD = 64 * 2**20  # bytes the REPEAT_FRAMES run's peak may differ from the LONG_FRAMES run's
+BUCKET_FRAMES = (37, 50)  # phase 8 (c): two lengths of the 64-slot bucket
 PER_ENCODED_FRAME = {"window_attention": 9, "layer_norm": 12, "ln_mlp_residual": 12}
 PER_TRACKED_FRAME = {"flash_attention": 8}
 PER_ENCODED_FRAME_FUSED = {"qkv_window_attention": 9, "layer_norm": 12, "ln_mlp_residual": 12}
@@ -1883,24 +1917,95 @@ def make_video(frames: int, size: int, seed: int):
     return video, (float(c0[0, 0]), float(c0[0, 1])), masks
 
 
-def run_main_path(predictor, video, click, stop_after=None):
-    """init_state -> add_new_points_or_box (frame 0, one positive click) ->
-    propagate_in_video (frames 0 to ``stop_after`` - 1 only, when given: the
-    predictor runs its whole window before it yields). Returns ({frame:
-    video-res logits [1, H, W]}, seconds of init_state + prompt, seconds of
-    propagation)."""
+# The port's names -> the reference's (sam2/modeling), the inverse of the
+# port's importer (core/import_torch.py): (pattern, replacement) in order.
+REFERENCE_NAMES = [
+    (r"^image_encoder\.trunk\.patch_embed\.", "image_encoder.trunk.patch_embed.proj."),
+    (r"^image_encoder\.neck\.convs_(\d+)_(\w+)\.", r"image_encoder.neck.convs.\1.\2."),
+    (r"^image_encoder\.neck\.convs_(\d+)\.", r"image_encoder.neck.convs.\1.conv."),
+    (r"^(mask_downsample|memory_encoder\.pix_feat_proj|memory_encoder\.out_proj)\.conv\.", r"\1."),
+    (r"^memory_encoder\.fuser_(\d+)\.dwconv\.conv\.", r"memory_encoder.fuser.layers.\1.dwconv."),
+    (r"^memory_encoder\.fuser_(\d+)\.", r"memory_encoder.fuser.layers.\1."),
+    (r"^sam_prompt_encoder\.pe_gaussian$", "sam_prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"),
+    (r"^sam_prompt_encoder\.mask_down_conv1\.conv\.", "sam_prompt_encoder.mask_downscaling.0."),
+    (r"^sam_prompt_encoder\.mask_down_ln1\.", "sam_prompt_encoder.mask_downscaling.1."),
+    (r"^sam_prompt_encoder\.mask_down_conv2\.conv\.", "sam_prompt_encoder.mask_downscaling.3."),
+    (r"^sam_prompt_encoder\.mask_down_ln2\.", "sam_prompt_encoder.mask_downscaling.4."),
+    (r"^sam_prompt_encoder\.mask_down_conv3\.conv\.", "sam_prompt_encoder.mask_downscaling.6."),
+    (r"^sam_prompt_encoder\.no_mask_embed$", "sam_prompt_encoder.no_mask_embed.weight"),
+    (r"^sam_mask_decoder\.(iou_token|mask_tokens|obj_score_token)$", r"sam_mask_decoder.\1.weight"),
+    (r"^sam_mask_decoder\.upscale_dc1\.", "sam_mask_decoder.output_upscaling.0."),
+    (r"^sam_mask_decoder\.upscale_ln\.", "sam_mask_decoder.output_upscaling.1."),
+    (r"^sam_mask_decoder\.upscale_dc2\.", "sam_mask_decoder.output_upscaling.3."),
+    (r"^sam_mask_decoder\.hyper_mlps_(\d+)\.", r"sam_mask_decoder.output_hypernetworks_mlps.\1."),
+    (r"^sam_mask_decoder\.iou_head\.", "sam_mask_decoder.iou_prediction_head."),
+    (r"^sam_mask_decoder\.obj_score_head\.", "sam_mask_decoder.pred_obj_score_head."),
+    (r"^conv_s([01])\.conv\.", r"sam_mask_decoder.conv_s\1."),
+    (r"(blocks|layers)_(\d+)\.", r"\1.\2."),
+]
+# the reference's shapes of the tables that the importer flattens
+REFERENCE_SHAPES = {"maskmem_tpos_enc": lambda v: v.reshape(v.shape[0], 1, 1, -1),
+                    "no_mem_embed": lambda v: v.reshape(1, 1, -1), "no_mem_pos_enc": lambda v: v.reshape(1, 1, -1),
+                    "no_obj_ptr": lambda v: v.reshape(1, -1), "no_obj_embed_spatial": lambda v: v.reshape(1, -1),
+                    "sam_prompt_encoder.no_mask_embed.weight": lambda v: v.reshape(1, -1)}
+
+
+def to_reference_state_dict(sd, cfg) -> dict:
+    """The port's state_dict -> a state_dict in the reference's names and
+    layouts (what a MedSAM2 / SAM2.1 ``.pt`` holds): the inverse of the
+    port's importer, written here on its own so that loading it back is a
+    check of that importer."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from us_video_medsam2_tpu_torch.ops.posenc import rope_halfsplit_perm
+
+    down = "memory_encoder.mask_downsampler."
+    n_conv = sum(1 for k in sd if re.match(rf"{re.escape(down)}encoder_\d+\.conv\.weight$", k))
+    out = {}
+    for k, v in sd.items():
+        v = v.detach().cpu().clone()
+        if k == "sam_prompt_encoder.point_embed":  # [not-a-point, 4 point labels]
+            out["sam_prompt_encoder.not_a_point_embed.weight"] = v[:1].clone()
+            for i in range(4):
+                out[f"sam_prompt_encoder.point_embeddings.{i}.weight"] = v[i + 1: i + 2].clone()
+            continue
+        if k in ("image_encoder.trunk.pos_embed", "image_encoder.trunk.pos_embed_window") and v.dim() == 4:
+            v = v.permute(0, 3, 1, 2).contiguous()  # Hiera's NHWC tables -> NCHW
+        m = re.match(r"memory_attention\.layers_\d+\.(self_attn|cross_attn_image)\.([qk])_proj\.", k)
+        if m:  # the importer's half-split permutation of RoPE q/k, undone
+            inv = np.argsort(rope_halfsplit_perm(v.shape[0], cfg.memory_attention.num_heads))
+            v = v[torch.from_numpy(inv)].contiguous()
+        m = re.match(rf"{re.escape(down)}encoder_(ln_)?(\d+)\.(conv\.)?", k)
+        if m:  # LayerNorm2d c sits after conv c, and GELU c after it: 3c, 3c + 1
+            k = f"{down}encoder.{3 * int(m.group(2)) + bool(m.group(1))}." + k[m.end():]
+        k = k.replace(f"{down}encoder_out.conv.", f"{down}encoder.{3 * n_conv}.")
+        for pat, rep in REFERENCE_NAMES:
+            k = re.sub(pat, rep, k)
+        out[k] = REFERENCE_SHAPES.get(k, lambda x: x)(v)
+    return out
+
+
+def run_main_path(predictor, video, click, stop_after=None, chunk_size=None, **init_kw):
+    """init_state (with ``init_kw``: a bucket, host offload) ->
+    add_new_points_or_box (frame 0, one positive click) -> propagate_in_video
+    (frames 0 to ``stop_after`` - 1 only, when given; ``chunk_size`` frames a
+    chunk). Returns ({frame: video-res logits [1, H, W]} in the order
+    yielded, seconds of init_state + prompt, seconds of propagation)."""
     import torch
 
     sync = torch.cuda.synchronize if predictor.device.type == "cuda" else (lambda: None)
     t0 = time.perf_counter()
     size = video.shape[1]
-    state = predictor.init_state(video, size, size)
+    state = predictor.init_state(video, size, size, **init_kw)
     predictor.add_new_points_or_box(state, 0, 1, points=[list(click)], labels=[1])
     sync()
     t1 = time.perf_counter()
     out = {}
     track = None if stop_after is None else stop_after - 1
-    for f, _, masks in predictor.propagate_in_video(state, max_frame_num_to_track=track):
+    for f, _, masks in predictor.propagate_in_video(state, max_frame_num_to_track=track, chunk_size=chunk_size):
         out[f] = masks[:, 0]
     sync()
     return out, t1 - t0, time.perf_counter() - t1
@@ -1908,19 +2013,20 @@ def run_main_path(predictor, video, click, stop_after=None):
 
 def profile_run(fn, label, out_dir, wall_s):
     """``fn()`` once under torch.profiler: device time by kernel, and a Chrome
-    trace ``{label}_trace.json`` in ``out_dir``. The idle share is taken
-    against ``wall_s``, an unprofiled run's wall time (the profiler slows the
-    host down)."""
+    trace ``{label}_trace.json`` in ``out_dir`` when one is given. The idle
+    share is taken against ``wall_s``, an unprofiled run's wall time (the
+    profiler slows the host down); it is returned."""
     import os
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
     wall_us = wall_s * 1e6
-    prof.export_chrome_trace(os.path.join(out_dir, f"{label}_trace.json"))
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, f"{label}_trace.json"))
     rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1936,6 +2042,7 @@ def profile_run(fn, label, out_dir, wall_s):
         f"{sum(r[1] for r in rows)} kernel launches")
     for us, count, key in rows[:25]:
         log(f"    {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% x{count:<5d} {key[:110]}")
+    return 1 - busy / wall_us
 
 
 def iou(a, b) -> float:
@@ -2162,8 +2269,8 @@ def graph_report(predictor, known) -> None:
         if key in known or not hasattr(g, "capture_s"):
             continue
         counts = {getattr(w, "__name__", str(w)): n for w, n in g.counts.items()}
-        log(f"  graph (frames {key[0]}, objects {key[1]}, cond slots {key[2]}, reverse {key[3]}, "
-            f"precompute {key[4]}, fused switches {key[5]}/{key[6]}): warm-up and capture "
+        log(f"  graph (bank slots {key[0]}, objects {key[1]}, cond slots {key[2]}, reverse {key[3]}, "
+            f"precompute {key[4]}, frames {key[5]}, fused switches {key[6]}/{key[7]}): warm-up and capture "
             f"{g.capture_s:.3f} s, pool {g.pool_bytes / 2**20:.1f} MiB, captured launches {counts}")
 
 
@@ -2207,9 +2314,7 @@ def timed_runs(predictor, video, click, expected):
     with window_sync_errors(predictor):
         for _ in range(REPEATS):
             (masks, t_prompt, t_prop), launches = read_counts(lambda: run_main_path(predictor, video, click))
-            log(f"  launches {launches}, expected {expected}")
-            if launches != expected:
-                raise AssertionError(f"launch counts {launches} != {expected}")
+            check_counts("run", launches, expected)
             if predictor.graphs.captures != captures:
                 raise AssertionError("a second state of the same shape captured the frame body again")
             runs.append((t_prompt + t_prop, t_prompt, t_prop))
@@ -2314,9 +2419,7 @@ def run_propagation(name, builder, per_encoded, per_encoded_fused, label, fused_
     video, click, _ = make_video(FRAMES, model.cfg.image_size, SEED)
 
     n = FRAMES
-    expected = {k: 0 for k in counters()}
-    expected.update({k: v * n for k, v in per_encoded.items()})
-    expected.update({k: v * (n - 1) for k, v in PER_TRACKED_FRAME.items()})
+    expected = expected_launches(per_encoded, n, n - 1)
     masks, wall, t_prompt, t_prop = timed_runs(predictor, video, click, expected)
     e_prop = eager_runs(predictor, video, click, expected, masks, f"{name}, default")
     check_recapture_after_cast(predictor, video, click, masks, f"{name}, default")
@@ -2345,9 +2448,7 @@ def run_propagation(name, builder, per_encoded, per_encoded_fused, label, fused_
         log(f"  precompute_features_batch={precompute}: {batches} encoder batches before the window, "
             f"plus the prompted frame's encode")
         pre = builder(name, state_dict=host_sd, fill_hole_area=8, precompute_features_batch=precompute)
-        pre_expected = {k: 0 for k in counters()}
-        pre_expected.update({k: v * (1 + batches) for k, v in per_encoded.items()})
-        pre_expected.update({k: v * (n - 1) for k, v in PER_TRACKED_FRAME.items()})
+        pre_expected = expected_launches(per_encoded, 1 + batches, n - 1)
         pmasks, _, _, p_prop = timed_runs(pre, video, click, pre_expected)
         hold_against_host(pmasks, ref)
         del pre
@@ -2359,9 +2460,7 @@ def run_propagation(name, builder, per_encoded, per_encoded_fused, label, fused_
     # call and its 2 CXBlocks.
     log(f"{fused_phase} fused configuration, {name}: " + " and ".join(f"{k}=1" for k in FUSED_SWITCHES))
     n_mem = 1 + (n - 1)
-    fused_expected = {k: 0 for k in counters()}
-    fused_expected.update({k: v * n for k, v in per_encoded_fused.items()})
-    fused_expected.update({k: v * (n - 1) for k, v in PER_TRACKED_FRAME.items()})
+    fused_expected = expected_launches(per_encoded_fused, n, n - 1)
     fused_expected.update({k: v * n_mem for k, v in PER_MEMORY_ENCODING.items()})
     log(f"  {n} encoded frames, {n - 1} tracked, {n_mem} memory encodings per run")
     with fused_switches():
@@ -2384,6 +2483,314 @@ def run_propagation(name, builder, per_encoded, per_encoded_fused, label, fused_
         + (f"; precompute_features_batch={precompute} (graph) {ms(p_prop)}" if precompute else "")
         + f"; on {card}")
     return {"default": expected, "fused": fused_expected}
+
+
+def expected_launches(per_encoded, encoded: int, tracked: int) -> dict:
+    """Exact launch counts of a run that encoded ``encoded`` frames and tracked
+    ``tracked`` (a capture's warm-up runs the frame body once eagerly: count
+    it as one of each)."""
+    expected = {k: 0 for k in counters()}
+    expected.update({k: v * encoded for k, v in per_encoded.items()})
+    expected.update({k: v * tracked for k, v in PER_TRACKED_FRAME.items()})
+    return expected
+
+
+def check_counts(what, launches, expected) -> None:
+    log(f"  {what}: launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"{what}: launch counts {launches} != {expected}")
+
+
+def counted_run(predictor, per_encoded, what, fn):
+    """``fn()`` (one prompted frame, then propagation; returns (masks, ...))
+    with the counts read around it and, on the card, held against one encode
+    per frame yielded and one track per frame past the first, plus one of
+    each per capture it made (the host's plain versions count nothing)."""
+    captures = predictor.graphs.captures
+    out, launches = read_counts(fn)
+    made = predictor.graphs.captures - captures
+    n = len(out[0])
+    if predictor.device.type == "cuda":
+        check_counts(what, launches, expected_launches(per_encoded, n + made, n - 1 + made))
+    return out, made
+
+
+def peak_bytes(fn):
+    """(fn(), the most device memory allocated while it ran)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated()
+
+
+def in_order(masks, n, what) -> None:
+    if list(masks) != list(range(n)):
+        raise AssertionError(f"{what}: frames yielded {list(masks)[:8]}..., not 0..{n - 1} in order")
+
+
+def check_checkpoint_load(name, builder, host_sd, cfg, video, click, per_encoded, out_dir):
+    """Phase 8 (a): the seeded weights written as a reference-name ``.pt``
+    (weights under "model", the inverse key map ``to_reference_state_dict``),
+    a predictor built from that file, and the main path's masks of both
+    predictors bit for bit. Returns the loaded predictor."""
+    import numpy as np
+    import torch
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"seed{SEED}_{name}_reference.pt")
+    torch.save({"model": to_reference_state_dict(host_sd, cfg)}, path)
+    log(f"  wrote {path} ({os.path.getsize(path) / 2**20:.1f} MiB, {len(host_sd)} port tensors)")
+    runs = {}
+    for how, kw in (("seeded", {"state_dict": host_sd}), ("loaded", {"ckpt_path": path})):
+        pred = builder(name, fill_hole_area=8, **kw)
+        (masks, _, _), _ = counted_run(pred, per_encoded, f"checkpoint {how}",
+                                       lambda: run_main_path(pred, video, click))
+        runs[how] = (pred, masks)
+    os.remove(path)
+    seeded, loaded = runs["seeded"][1], runs["loaded"][1]
+    same = [f for f in seeded if np.array_equal(seeded[f], loaded[f])]
+    log(f"  checkpoint loaded by reference names: {len(same)} of {len(seeded)} frames bit-identical "
+        f"to the seeded predictor's")
+    if len(same) != len(seeded) or list(loaded) != list(seeded):
+        raise AssertionError("the predictor built from the checkpoint disagrees with the seeded one")
+    return runs["loaded"][0]
+
+
+def check_long_video(predictor, per_encoded, size, card, profile_dir, on_card=True, frames=LONG_FRAMES,
+                     repeat=REPEAT_FRAMES, chunk=STREAM_CHUNK, bucket=LONG_BUCKET, warm=WARM_FRAMES,
+                     profiled=PROFILE_FRAMES):
+    """Phase 8 (b): a ``frames``-frame uint8 study offloaded to the host and
+    streamed ``chunk`` frames at a time, against the same video resident on
+    the device; then a ``repeat``-frame video in the same bucket. On the card:
+    both graphs captured beforehand by short runs of their keys; each measured
+    run's windows sync-free, its launches exact and its peak device memory
+    read; the offloaded peak ``OFFLOAD_SAVING`` below the resident; the repeat
+    run without a capture and its peak within ``PEAK_SPREAD``; the idle share
+    of a profiled streamed run. Returns the three runs' masks."""
+    video, click, _ = make_video(frames, size, SEED)
+    stream = {"chunk_size": chunk, "offload_video_to_host": True}
+    log(f"  video: {frames} frames of {size}x{size} uint8 ({video.nbytes / 2**20:.0f} MiB on the host)")
+    if on_card:
+        known = set(predictor.graphs.entries)
+        t0 = time.perf_counter()
+        for what, kw in (("streamed", dict(t_bucket=bucket, **stream)), ("resident", dict(t_bucket=frames))):
+            counted_run(predictor, per_encoded, f"{what} warm-up ({warm} frames)",
+                        lambda kw=kw: run_main_path(predictor, video[:warm], click, **kw))
+        graph_report(predictor, known)
+        log(f"  the streamed and the resident key captured by {warm}-frame runs in "
+            f"{time.perf_counter() - t0:.2f} s")
+    captures = predictor.graphs.captures
+    results = {}
+    for what, n, kw in (("streamed", frames, stream), ("resident", frames, {}), ("repeat", repeat, stream)):
+        def go(n=n, kw=kw):
+            return run_main_path(predictor, video[:n], click, **kw)
+
+        if on_card:
+            with window_sync_errors(predictor):
+                ((masks, t_prompt, t_prop), peak), launches = read_counts(lambda: peak_bytes(go))
+            check_counts(f"{what} ({n} frames)", launches, expected_launches(per_encoded, n, n - 1))
+        else:
+            (masks, t_prompt, t_prop), peak = go(), None
+        in_order(masks, n, what)
+        if predictor.graphs.captures != captures:
+            raise AssertionError(f"{what} ({n} frames): captured the frame body again")
+        results[what] = (masks, t_prop / (n - 1), peak)
+        log(f"  {what} ({n} frames{f', chunks of {chunk}, offloaded' if kw else ', resident'}): "
+            f"init_state + prompt {1e3 * t_prompt:.2f} ms, propagation {t_prop:.3f} s = "
+            f"{1e3 * t_prop / (n - 1):.3f} ms per tracked frame"
+            + (f", peak device memory {peak / 2**20:.1f} MiB" if peak is not None else ""))
+    hold_graph_against_eager(results["streamed"][0], results["resident"][0], f"{frames}-frame study",
+                             "offloaded and streamed vs resident")
+    ms = {k: 1e3 * v[1] for k, v in results.items()}
+    log(f"  ms per tracked frame (host clock), streamed {ms['streamed']:.3f} vs resident {ms['resident']:.3f}; "
+        f"{repeat}-frame streamed {ms['repeat']:.3f}; on {card}")
+    if on_card:
+        p_off, p_res, p_rep = (results[k][2] for k in ("streamed", "resident", "repeat"))
+        log(f"  peak device memory: offloaded {p_off / 2**20:.1f} MiB vs resident {p_res / 2**20:.1f} MiB "
+            f"({(p_res - p_off) / 2**30:.3f} GiB lower, at least {OFFLOAD_SAVING / 2**30:.3f} required); "
+            f"{repeat} frames {p_rep / 2**20:.1f} MiB ({(p_rep - p_off) / 2**20:+.1f} MiB, within "
+            f"{PEAK_SPREAD / 2**20:.0f}); no capture after the warm-up runs")
+        if p_res - p_off < OFFLOAD_SAVING:
+            raise AssertionError("the offloaded run's peak is not low enough")
+        if abs(p_rep - p_off) > PEAK_SPREAD:
+            raise AssertionError(f"the {repeat}-frame run's peak is not that of the {frames}-frame run")
+
+        def short():
+            return counted_run(predictor, per_encoded, f"profiled streamed run ({profiled} frames)",
+                               lambda: run_main_path(predictor, video[:profiled], click, t_bucket=bucket,
+                                                     **stream))[0]
+
+        _, t_prompt, t_prop = short()
+        idle = profile_run(short, "streamed", profile_dir, t_prompt + t_prop)
+        log(f"  idle share of a profiled {profiled}-frame streamed run (bucket {bucket}): {idle:.3f} on {card}")
+    return {k: v[0] for k, v in results.items()}
+
+
+def check_buckets(predictor, per_encoded, size, on_card=True, lengths=BUCKET_FRAMES):
+    """Phase 8 (c): videos of ``lengths`` frames with t_bucket="auto" share one
+    capture, and each meets the graph-vs-eager gate against its exact-shape
+    session."""
+    video, click, _ = make_video(max(lengths), size, SEED)
+    captures = predictor.graphs.captures
+    bucketed = {}
+    for n in lengths:
+        (bucketed[n], _, _), _ = counted_run(predictor, per_encoded, f"{n} frames, t_bucket auto",
+                                             lambda n=n: run_main_path(predictor, video[:n], click, t_bucket="auto"))
+    made = predictor.graphs.captures - captures
+    log(f"  lengths {list(lengths)} with t_bucket='auto': {made} capture(s)")
+    if on_card and made != 1:
+        raise AssertionError(f"lengths {list(lengths)} of one bucket made {made} captures, not 1")
+    for n in lengths:
+        (exact, _, _), _ = counted_run(predictor, per_encoded, f"{n} frames, exact",
+                                       lambda n=n: run_main_path(predictor, video[:n], click))
+        in_order(bucketed[n], n, f"{n} frames, bucketed")
+        hold_graph_against_eager(bucketed[n], exact, f"{n} frames", "bucketed (64 slots) vs exact-shape session")
+
+
+def editing_sequence(predictor, video, clicks) -> dict:
+    """Phase 8 (d) on one predictor: three objects clicked on frames 0 and 8,
+    propagation forward; the second object removed; frame 8's prompts
+    cleared; frame 8 re-prompted for the first object with its earlier
+    low-res logits (``prev_low_res_mask``); propagation forward, then in
+    reverse from frame 8. Returns {(pass, frame): (object ids, logits [O,
+    H, W] of every row)} of every frame yielded, and the frames each pass
+    ran."""
+    size = video.shape[1]
+    state = predictor.init_state(video, size, size, max_objects=3)
+    for f in (0, 8):
+        for o in (1, 2, 3):
+            predictor.add_new_points_or_box(state, f, o, points=[list(clicks[f][o - 1])], labels=[1])
+    out, ran = {}, {}
+
+    def propagate(label, **kw):
+        ran[label] = 0
+        for f, ids, masks in predictor.propagate_in_video(state, **kw):
+            out[(label, f)] = (ids, masks[:, 0])
+            ran[label] += f not in state.cond_low_res
+
+    propagate("forward")
+    predictor.remove_object(state, 2)
+    prev = state.cond_low_res[8][0].float().cpu().numpy()
+    for o in (1, 3):
+        predictor.clear_all_prompts_in_frame(state, 8, o)
+    if 8 in state.cond_low_res:
+        raise AssertionError("frame 8 still conditioning after its prompts were cleared")
+    predictor.add_new_points_or_box(state, 8, 1, points=[list(clicks[8][0])], labels=[1], prev_low_res_mask=prev)
+    propagate("forward again")
+    propagate("reverse", reverse=True, start_frame_idx=8)
+    return out, ran
+
+
+def blob_clicks(masks, frames=(0, 8)):
+    """{frame: [(x, y) centre of each blob]} from ``make_video``'s masks."""
+    import numpy as np
+
+    out = {}
+    for f in frames:
+        pts = []
+        for m in masks[f]:
+            yy, xx = np.nonzero(m)
+            # a blob that has left the frame: a click in the middle
+            pts.append((float(xx.mean()), float(yy.mean())) if len(xx) else (m.shape[1] / 2, m.shape[0] / 2))
+        out[f] = pts
+    return out
+
+
+def per_object(frames) -> dict:
+    """{(pass, frame, object id): logits [H, W]} of the live objects."""
+    return {(label, f, obj): rows[oi] for (label, f), (ids, rows) in frames.items() for oi, obj in enumerate(ids)}
+
+
+def check_editing(name, builder, host_sd, per_encoded, size, on_card=True):
+    """Phase 8 (d): the editing sequence on the card with ``non_overlap_masks``
+    and the scrub on (for every object), again on the card without
+    ``non_overlap_masks``, and on the host CPU without it (plain versions,
+    f32). The card's first run must be its second constrained (per pixel
+    only the row of the highest logit keeps it), bit for bit. Every yielded
+    frame of each live object of the unconstrained runs is held to the
+    card-vs-host gate; the constrained frames are held to it rank by rank
+    (the rows' logits sorted at each pixel), since with seeded weights the
+    objects' tracked logits nearly tie and which object keeps a pixel is a
+    rounding. On the card the launches of the first run are exact (2
+    prompted frames encoded, frame 8 once more, the frame body once a frame
+    run and once more per capture)."""
+    import numpy as np
+    import torch
+
+    from us_video_medsam2_tpu_torch.inference.video_predictor import _non_overlap
+
+    video, _, masks = make_video(FRAMES, size, SEED)
+    clicks = blob_clicks(masks)
+    flags = dict(fill_hole_area=8, non_overlap_masks=True, clear_non_cond_mem_around_input=True,
+                 clear_non_cond_mem_for_multi_obj=True)
+    free_flags = dict(flags, non_overlap_masks=False)
+    card = builder(name, state_dict=host_sd, **flags)
+    captures = card.graphs.captures
+    (got, ran), launches = read_counts(lambda: editing_sequence(card, video, clicks))
+    made = card.graphs.captures - captures
+    tracked = sum(ran.values())
+    log(f"  frames run by each pass {ran}; {made} capture(s)")
+    if on_card:
+        check_counts("editing sequence", launches, expected_launches(per_encoded, 3 + tracked + made, tracked + made))
+    del card
+    free, _ = editing_sequence(builder(name, state_dict=host_sd, **free_flags), video, clicks)
+
+    def constrained(frames):
+        return {k: _non_overlap(torch.from_numpy(rows)).numpy() for k, (_, rows) in frames.items()}
+
+    same = sum(np.array_equal(got[k][1], v) for k, v in constrained(free).items())
+    log(f"  non_overlap_masks: {same} of {len(got)} frames the unconstrained run's frames so constrained, "
+        f"bit for bit")
+    if same != len(got) or list(free) != list(got):
+        raise AssertionError("the card's non-overlapping masks are not its unconstrained masks constrained")
+    host = builder(name, state_dict=host_sd, device="cpu", dtype=torch.float32, **free_flags)
+    t0 = time.perf_counter()
+    want, ran_host = editing_sequence(host, video, clicks)
+    log(f"  host run of the sequence {time.perf_counter() - t0:.1f} s")
+    if ran_host != ran or list(want) != list(got):
+        raise AssertionError(f"card and host yielded other frames: {ran} vs {ran_host}")
+    log("  unconstrained, each live object:")
+    hold_against_host(per_object(free), per_object(want))
+    log("  non_overlap_masks, each rank of the rows' logits sorted at every pixel:")
+
+    def ranks(frames):
+        return {(label, f, r): rows for (label, f), x in frames.items()
+                for r, rows in enumerate(np.sort(x, axis=0)[::-1])}
+
+    hold_against_host(ranks({k: v[1] for k, v in got.items()}), ranks(constrained(want)))
+    return got
+
+
+def run_long_video_and_editing(name, builder, per_encoded, card, profile_dir, out_dir, on_card=True,
+                               long_video=None, bucket_lengths=BUCKET_FRAMES):
+    """Phase 8 for the preset ``name`` through ``builder`` (bf16, the default
+    switches): (a) a reference-name checkpoint loaded, (b) a long study
+    offloaded and streamed, (c) two lengths of one bucket, (d) the editing
+    sequence, each with the seeded weights of phase 4 (the object-score
+    head's output bias at +10)."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.core.build import build_sam2
+
+    model = build_sam2(name, seed=SEED)
+    with torch.no_grad():
+        model.sam_mask_decoder.obj_score_head.layers_2.bias.fill_(10.0)
+    host_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    size = model.cfg.image_size
+    video, click, _ = make_video(FRAMES, size, SEED)
+    log(f"  (a) {name}'s seeded weights as a reference-name .pt under \"model\", loaded through ckpt_path=")
+    predictor = check_checkpoint_load(name, builder, host_sd, model.cfg, video, click, per_encoded, out_dir)
+    log("  (b) a long study: uint8, offloaded to the host, streamed in chunks, against the video resident")
+    check_long_video(predictor, per_encoded, size, card, profile_dir, on_card, **(long_video or {}))
+    log(f"  (c) lengths {list(bucket_lengths)} with t_bucket='auto' against their exact-shape sessions")
+    check_buckets(predictor, per_encoded, size, on_card, bucket_lengths)
+    del predictor
+    log("  (d) editing, three objects: remove_object, clear_all_prompts_in_frame, prev_low_res_mask, "
+        "non_overlap_masks, the scrub; card vs host")
+    check_editing(name, builder, host_sd, per_encoded, size, on_card)
 
 
 def main(argv=None) -> int:
@@ -2417,7 +2824,7 @@ def main(argv=None) -> int:
     # 1. the card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/8] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[1/9] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 2. the build
     t0 = time.perf_counter()
@@ -2425,7 +2832,7 @@ def main(argv=None) -> int:
     lib = _lib.build(log=msgs.append)
     _lib.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/8] build: {lib.name} in {build_s:.2f} s (set-up)")
+    log(f"[2/9] build: {lib.name} in {build_s:.2f} s (set-up)")
     if msgs:
         (lib.parent / "nvcc.log").write_text("\n".join(msgs))
         regs = ptxas_report(msgs)
@@ -2438,7 +2845,7 @@ def main(argv=None) -> int:
         log("  (library built before this run: no compiler report)")
 
     # 3. each kernel against its plain version
-    log("[3/8] kernels vs plain versions at the main-path shapes (bf16)")
+    log("[3/9] kernels vs plain versions at the main-path shapes (bf16)")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(g)
     check_kernel_grads(g)
@@ -2447,15 +2854,15 @@ def main(argv=None) -> int:
     check_window_attention_v1(g, rows)
 
     # 4-5. the main path: sam2.1_hiera_t512, switches off, then on
-    log("[4/8] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
+    log("[4/9] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
     t512 = run_propagation("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME,
-                           PER_ENCODED_FRAME_FUSED, "main_path", "[5/8]", card, args.profile,
+                           PER_ENCODED_FRAME_FUSED, "main_path", "[5/9]", card, args.profile,
                            precompute=PRECOMPUTE_BATCH)
 
     # 6. EfficientMedSAM-S: the same, through the EfficientTAM entry point
-    log("[6/8] EfficientMedSAM-S: efficientmedsam_s_512, bf16, seeded weights and video")
+    log("[6/9] EfficientMedSAM-S: efficientmedsam_s_512, bf16, seeded weights and video")
     eff = run_propagation("efficientmedsam_s_512", build_efficienttam_video_predictor, PER_ENCODED_FRAME_VIT,
-                          PER_ENCODED_FRAME_VIT_FUSED, "efficienttam_s", "[6/8]", card, args.profile,
+                          PER_ENCODED_FRAME_VIT_FUSED, "efficienttam_s", "[6/9]", card, args.profile,
                           VIT_IOU_MARGIN)
     launches = {k: t512["default"][k] + eff["default"][k] for k in t512["default"]}
     for k in ("cxblock", "qkv_window_attention"):  # the kernels of the fused configuration
@@ -2466,12 +2873,21 @@ def main(argv=None) -> int:
          for cfg in ("default", "fused")}))
 
     # 7. the training path
-    log(f"[7/8] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
+    log(f"[7/9] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
         f"T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}, seeded weights and batch")
     train_launches = run_training(args.profile)
     log(f"  launches over the {TRAIN_STEPS} timed steps: {train_launches}")
 
-    # 8. the kernels line (launches of the dropout kernels from the training
+    # 8. the predictor's long-video and editing paths
+    log("[8/9] long video and editing: sam2.1_hiera_t512, bf16, seeded weights; checkpoint, offload and "
+        "streaming, buckets, editing")
+    t0 = time.perf_counter()
+    run_long_video_and_editing("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME, card,
+                               args.profile, os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                                          "chip_smoke"))
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    # 9. the kernels line (launches of the dropout kernels from the training
     # steps, of cxblock and qkv_window_attention from the fused propagation
     # runs of both models, of the others from their default runs, where the
     # unwired window_attention_v1 launches none), the card line, the device line
@@ -2485,7 +2901,7 @@ def main(argv=None) -> int:
             "library_ms": r.library_ms,
         })
     detail = {r.name: r.shapes for r in rows.values()}
-    log("[8/8] per-shape detail " + json.dumps(detail))
+    log("[9/9] per-shape detail " + json.dumps(detail))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -70,3 +70,38 @@ def n(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(x, np.float32)
+
+
+def mini_jax_predictor(**kwargs):
+    """The JAX package's video predictor of the MINI model (fixture weights)."""
+    from us_video_medsam2_tpu.inference.video_predictor import SAM2VideoPredictor
+    from us_video_medsam2_tpu.models.sam2 import SAM2Model
+
+    params, _ = mini_weights()
+    return SAM2VideoPredictor(SAM2Model(MINI), params, **kwargs)
+
+
+def mini_port_predictor(**kwargs):
+    """The port's video predictor of the MINI model (the same weights) on the CPU."""
+    from us_video_medsam2_tpu_torch.inference.video_predictor import SAM2VideoPredictor
+
+    return SAM2VideoPredictor(mini_port_model(), device="cpu", **kwargs)
+
+
+def iou(a, b) -> float:
+    a, b = np.asarray(a) > 0, np.asarray(b) > 0
+    union = (a | b).sum()
+    return 1.0 if union == 0 else float((a & b).sum() / union)
+
+
+def assert_masks_close(got: dict, want: dict, what: str = "") -> None:
+    """The same frames, each [O, 1, H, W] within the JAX predictor tests' own
+    tolerances (tests/test_video_predictor.py): logits rtol 1e-3 / atol 1e-3,
+    every object's mask IoU > 0.999."""
+    assert list(got) == list(want), (what, list(got), list(want))
+    for t in want:
+        a, b = np.asarray(got[t]), np.asarray(want[t])
+        assert a.shape == b.shape, (what, t, a.shape, b.shape)
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3, err_msg=f"{what} frame {t}")
+        for o in range(b.shape[0]):
+            assert iou(a[o], b[o]) > 0.999, (what, t, o)

@@ -1,27 +1,64 @@
 """Model builder (the reference's build_sam.py facade, build_sam.py:63-207).
 
 Resolves a named preset, applies the predictor's postprocessing overrides
-(dynamic multimask stability, binarized click memories), and loads a
-state_dict or fills the weights from a seed.
+(dynamic multimask stability, binarized click memories), and loads the
+weights: a state_dict in the port's names, a checkpoint file
+(``load_params``: a reference-name ``.pt`` / ``.pth`` such as a MedSAM2
+release, a native ``.npz`` of the JAX package's trainer, or a reference-name
+``.npz``), or, with neither, weights made from a seed. No path needs JAX.
+YAML configs are not read yet (``ROADMAP.md`` A5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+
+import numpy as np
 
 from us_video_medsam2_tpu_torch.core.config import SAM2Config, resolve_config
-from us_video_medsam2_tpu_torch.core.weights import init_random_
+from us_video_medsam2_tpu_torch.core.weights import from_jax_params, init_random_
 from us_video_medsam2_tpu_torch.models.sam2 import SAM2Model
 
 
+def load_params(cfg: SAM2Config, ckpt_path: str, strict: bool = True) -> dict:
+    """The port's state_dict from a checkpoint file (JAX ``build.py::load_params``):
+    ``.pt`` / ``.pth`` through the reference-name importer; an ``.npz`` whose
+    keys start with ``params/`` through the native reader; any other
+    ``.npz`` as reference names (the test fixtures' form); any other path as
+    a native checkpoint. With ``strict`` the keys and shapes must be the
+    model's."""
+    from us_video_medsam2_tpu_torch.core import checkpoint, import_torch
+
+    if ckpt_path.endswith((".pt", ".pth")):
+        sd = import_torch.load_torch_checkpoint(ckpt_path, cfg)
+    elif ckpt_path.endswith(".npz"):
+        with np.load(ckpt_path) as f:
+            native = any(k.startswith("params/") for k in f.files)
+            data = None if native else dict(f)
+        if native:
+            sd = from_jax_params(checkpoint.restore_params(ckpt_path), cfg)
+        else:
+            sd = import_torch.convert_reference_state_dict(data, cfg)
+    else:
+        sd = from_jax_params(checkpoint.restore_params(ckpt_path), cfg)
+    if strict:
+        import_torch.check_state_dict(sd, cfg)
+    return sd
+
+
 def build_sam2(config: str | SAM2Config = "sam2.1_hiera_t512", state_dict=None, seed: int = 0,
-               **overrides) -> SAM2Model:
-    """f32 SAM2Model on the CPU; weights from ``state_dict`` (strict) or ``seed``."""
+               ckpt_path: str | None = None, **overrides) -> SAM2Model:
+    """f32 SAM2Model on the CPU; weights from ``state_dict`` (strict), else
+    from the checkpoint at ``ckpt_path``, else made from ``seed``."""
     overrides.setdefault("dynamic_multimask_via_stability", True)
     overrides.setdefault("binarize_mask_from_pts_for_mem_enc", True)
     cfg = dataclasses.replace(resolve_config(config), **overrides)
     model = SAM2Model(cfg)
+    if state_dict is None and ckpt_path is not None:
+        state_dict = load_params(cfg, ckpt_path)
     if state_dict is None:
+        logging.warning("no checkpoint given: weights made from seed %d", seed)
         init_random_(model, seed)
     else:
         model.load_state_dict(state_dict, strict=True)

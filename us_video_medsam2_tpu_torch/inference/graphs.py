@@ -5,10 +5,15 @@ Counterpart of the body of the JAX predictor's ``lax.scan``
 one frame's features, runs ``SAM2Model.track_step`` (memory write included)
 and writes the frame's low-res logits into its row of a ``[F, O, 4·fs,
 4·fs]`` buffer. Everything it reads or writes lies in a ``FrameBuffers`` at
-fixed addresses, and the frame index is a 0-d long tensor there, so one
-capture of the body serves every frame of the window: the host writes the
-index (``fill_``) and, where the body encodes its own frame, copies the frame
-in, then replays. On the CPU the predictor calls the same body eagerly.
+fixed addresses, and the frame index and the video's length are 0-d long
+tensors there (JAX traces both), so one capture of the body serves every
+frame of the window and every video length whose bank has the same slots
+(a ``t_bucket``): the host writes the index and the length (``fill_``) and,
+where the body encodes its own frame, copies the frame in, then replays. The
+frame buffer has the dtype of the video's store: f32 for a resident video,
+the host dtype of an offloaded one, or raw uint8, which the body normalizes
+(JAX ``_propagate_chunk_impl``). On the CPU the predictor calls the same
+body eagerly.
 
 ``FrameGraph`` holds one capture. Before capturing it runs the body once
 eagerly on a side stream (as ``torch.cuda.graphs`` asks): capture executes
@@ -34,8 +39,10 @@ import dataclasses
 import time
 from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
+from us_video_medsam2_tpu_torch.inference.transforms import prep_frames
 from us_video_medsam2_tpu_torch.kernels import _lib
 from us_video_medsam2_tpu_torch.models.memory_bank import MemoryBank
 
@@ -49,9 +56,10 @@ class FrameBuffers:
     """What the frame body reads and writes."""
 
     t: torch.Tensor  # 0-d long: the frame index
+    num_frames: torch.Tensor  # 0-d long: the video's length (the bank may have more slots)
     bank: MemoryBank  # [O, F, ...]: the body reads it and writes row t
     lows: torch.Tensor  # [F, O, 4fs, 4fs] f32 low-res logits: the body writes row t
-    frame: Optional[torch.Tensor]  # [1, S, S, 3] f32: the frame the body encodes, or
+    frame: Optional[torch.Tensor]  # [1, S, S, 3] f32, f16 or raw uint8: the frame the body encodes, or
     feats: Optional[Dict[str, torch.Tensor]]  # {top, s0, s1} [F, ...]: precomputed rows
 
 
@@ -73,10 +81,11 @@ def feature_shapes(cfg) -> Dict[str, tuple]:
     return shapes
 
 
-def make_buffers(model, bank: MemoryBank, precompute: bool, new_bank: bool) -> FrameBuffers:
+def make_buffers(model, bank: MemoryBank, precompute: bool, new_bank: bool,
+                 frame_dtype: torch.dtype = torch.float32) -> FrameBuffers:
     """Buffers for ``bank``'s shape on its device; the bank itself unless
     ``new_bank`` (then a zeroed bank of the same shape that the caller copies
-    a state's bank into)."""
+    a state's bank into). The frame buffer has ``frame_dtype``."""
     cfg = model.cfg
     o, nf = bank.valid.shape
     dev = bank.valid.device
@@ -87,17 +96,20 @@ def make_buffers(model, bank: MemoryBank, precompute: bool, new_bank: bool) -> F
     if precompute:
         feats = {k: torch.zeros((nf, *s), dtype=model.dtype, device=dev) for k, s in feature_shapes(cfg).items()}
     else:
-        frame = torch.zeros(1, cfg.image_size, cfg.image_size, 3, device=dev)
-    return FrameBuffers(torch.zeros((), dtype=torch.long, device=dev), bank, lows, frame, feats)
+        frame = torch.zeros(1, cfg.image_size, cfg.image_size, 3, dtype=frame_dtype, device=dev)
+    index = torch.zeros((), dtype=torch.long, device=dev)
+    return FrameBuffers(index, torch.zeros_like(index), bank, lows, frame, feats)
 
 
-def frame_body(model, bufs: FrameBuffers, num_frames: int, reverse: bool, max_cond_slots: int) -> None:
+def frame_body(model, bufs: FrameBuffers, num_frames: int | torch.Tensor, reverse: bool,
+               max_cond_slots: int) -> None:
     """One tracked frame: features of frame ``bufs.t``, ``track_step`` with
     the memory encoder (its memory written into ``bufs.bank``), the chosen
-    low-res logits into row ``bufs.t`` of ``bufs.lows``."""
+    low-res logits into row ``bufs.t`` of ``bufs.lows``. ``num_frames`` is
+    the video's length, an int or ``bufs.num_frames``."""
     t = bufs.t.reshape(1)
     if bufs.frame is not None:
-        feats1 = encode_frames(model, bufs.frame)
+        feats1 = encode_frames(model, prep_frames(bufs.frame, model.cfg.image_size))
     else:
         feats1 = {k: v.index_select(0, t) for k, v in bufs.feats.items()}
     o = bufs.lows.shape[1]
@@ -218,3 +230,39 @@ class FrameGraphs:
         self.entries[key] = g
         self.captures += 1
         return g
+
+
+class ChunkStager:
+    """An offloaded video's frames onto the device a chunk at a time (JAX
+    ``propagate_in_video``'s host gather, ``:1047-1055``). On the card each
+    chunk goes through one of two page-locked host buffers, used in turn,
+    into a device buffer of its own by one copy that does not block the
+    host; an event recorded after the copy says when the host buffer may be
+    filled again. The host therefore waits only when it refills a buffer,
+    before the window of the chunk after next, and never inside a window.
+    The video itself is never pinned. On the CPU a chunk is gathered into a
+    plain buffer."""
+
+    def __init__(self, store, chunk: int, device: torch.device):
+        shape = (chunk, *store.shape[1:])
+        dtype = torch.from_numpy(store[:0]).dtype
+        self.store = store
+        self.on_card = device.type == "cuda"
+        self.host = [torch.empty(shape, dtype=dtype, pin_memory=self.on_card) for _ in range(2)]
+        self.dev = ([torch.empty(shape, dtype=dtype, device=device) for _ in range(2)]
+                    if self.on_card else self.host)
+        self.ready: list = [None, None]
+
+    def stage(self, i: int, frames) -> torch.Tensor:
+        """Chunk ``i``'s ``frames`` (video indices) into rows 0.. of buffer
+        ``i % 2`` on the device; the buffer is returned."""
+        j = i % 2
+        if self.ready[j] is not None:
+            self.ready[j].synchronize()  # the copy out of this host buffer has ended
+        n = len(frames)
+        np.take(self.store, np.asarray(frames, np.int64), axis=0, out=self.host[j].numpy()[:n])
+        if self.on_card:
+            self.dev[j][:n].copy_(self.host[j][:n], non_blocking=True)
+            self.ready[j] = torch.cuda.Event()
+            self.ready[j].record()
+        return self.dev[j]

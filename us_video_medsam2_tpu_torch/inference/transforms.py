@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from us_video_medsam2_tpu_torch.ops.posenc import _on_device
 from us_video_medsam2_tpu_torch.ops.resize import resize2d
 
 IMG_MEAN = (0.485, 0.456, 0.406)
@@ -15,15 +16,28 @@ IMG_STD = (0.229, 0.224, 0.225)
 
 
 def preprocess_images(images: torch.Tensor, image_size: int) -> torch.Tensor:
-    """uint8/float [T, H, W, 3] -> normalized f32 [T, S, S, 3]."""
+    """uint8/float [T, H, W, 3] -> normalized f32 [T, S, S, 3]. Elementwise
+    at model resolution, so a frame gives the same bits alone or in a batch;
+    the mean and std live on the device (a captured frame body normalizes
+    its raw uint8 frame with no host copy)."""
     x = images.float()
     if images.dtype == torch.uint8:
         x = x / 255.0
     if x.shape[-3] != image_size or x.shape[-2] != image_size:
         x = resize2d(x, (image_size, image_size))
-    mean = torch.tensor(IMG_MEAN, device=x.device)
-    std = torch.tensor(IMG_STD, device=x.device)
+    mean = _on_device("img_mean", lambda d: torch.tensor(IMG_MEAN, device=d), x.device)
+    std = _on_device("img_std", lambda d: torch.tensor(IMG_STD, device=d), x.device)
     return (x - mean) / std
+
+
+def prep_frames(images: torch.Tensor, image_size: int) -> torch.Tensor:
+    """A chunk of video frames -> normalized f32 at model resolution: uint8
+    frames, or frames at another size, through ``preprocess_images``; float
+    frames at model resolution (already normalized) as f32. JAX's
+    ``_prep_chunk_impl`` without the fold, a TPU relayout."""
+    if images.dtype == torch.uint8 or images.shape[-3] != image_size or images.shape[-2] != image_size:
+        return preprocess_images(images, image_size)
+    return images.float()
 
 
 def transform_coords(coords, orig_hw: tuple[int, int], image_size: int) -> np.ndarray:

@@ -12,6 +12,13 @@ The frame index is an int or a 0-d ``torch.long`` tensor on the bank's device
 a captured frame body (``inference/graphs.py``) serves every frame. Indexing
 with a 0-d tensor (``bank.valid[:, t]``) would read it back to the host, so
 the tensor form writes through ``index_copy_`` / ``index_fill_``.
+``num_frames`` may be a 0-d tensor too (JAX's traced length): then the
+pointer slots are sized at ``max_obj_ptrs_in_encoder`` and masked, so every
+video length in one bank bucket shares one captured body.
+
+``clear_window``, ``downgrade_frame`` and ``permute_rows`` are the JAX
+predictor's three bank edits (``_clear_window``, ``_downgrade_frame``,
+``_permute_rows``), done in place with device ops only.
 """
 
 from __future__ import annotations
@@ -72,10 +79,11 @@ class MemorySelection:
     ptr_idx: torch.Tensor  # [B, P]
     ptr_valid: torch.Tensor  # [B, P] bool
     ptr_pos: torch.Tensor  # [B, P] f32 temporal distances
-    t_diff_max: int  # pointer sine-embedding normalizer
+    t_diff_max: int | torch.Tensor  # pointer sine-embedding normalizer (f32 0-d with a tensor length)
 
 
-def select_memories(bank: MemoryBank, frame_idx: int | torch.Tensor, cfg: SAM2Config, num_frames: int,
+def select_memories(bank: MemoryBank, frame_idx: int | torch.Tensor, cfg: SAM2Config,
+                    num_frames: int | torch.Tensor,
                     track_in_reverse: bool = False, max_cond_slots: int | None = None,
                     is_training: bool = False) -> MemorySelection:
     """The reference's memory-frame selection (sam2_base.py:1296-1422) as a
@@ -85,8 +93,11 @@ def select_memories(bank: MemoryBank, frame_idx: int | torch.Tensor, cfg: SAM2Co
     last min(num_frames, max_obj_ptrs) frames (conditioning pointers only from
     the past at eval, if so configured). Conditioning frames that did not
     make the top K stay eligible as non-conditioning memories and pointers.
-    ``frame_idx`` is an int or a 0-d long tensor on the bank's device;
-    ``num_frames`` stays an int (it sets the pointer slots' shape)."""
+    ``frame_idx`` is an int or a 0-d long tensor on the bank's device.
+    ``num_frames`` is an int (the pointer slots cover min(num_frames,
+    max_obj_ptrs)) or a 0-d long tensor there (JAX's traced form: the
+    slots are sized at max_obj_ptrs and those past the video masked, which
+    attention turns into exact zeros)."""
     B, S = bank.valid.shape
     dev = bank.valid.device
     K = max(min(cfg.max_cond_frame_slots if max_cond_slots is None else max_cond_slots, S), 1)
@@ -126,8 +137,12 @@ def select_memories(bank: MemoryBank, frame_idx: int | torch.Tensor, cfg: SAM2Co
         cfg.num_maskmem - t_pos - 1,
     ])
 
-    max_ptrs = min(num_frames, cfg.max_obj_ptrs_in_encoder)
-    t_diff_max = max(max_ptrs - 1, 1)
+    if isinstance(num_frames, torch.Tensor):
+        max_ptrs = cfg.max_obj_ptrs_in_encoder
+        t_diff_max = (num_frames.clamp(max=cfg.max_obj_ptrs_in_encoder) - 1).clamp(min=1).float()
+    else:
+        max_ptrs = min(num_frames, cfg.max_obj_ptrs_in_encoder)
+        t_diff_max = max(max_ptrs - 1, 1)
     cond_ptr_valid = cond_valid
     if not is_training and cfg.only_obj_ptrs_in_the_past_for_eval:
         in_past = (cond_idx >= frame_idx) if track_in_reverse else (cond_idx <= frame_idx)
@@ -159,3 +174,40 @@ def gather_memories(bank: MemoryBank, sel: MemorySelection):
     b = bank.maskmem.shape[0]
     rows = torch.arange(b, device=bank.maskmem.device)[:, None]
     return bank.maskmem[rows, sel.mem_idx], bank.obj_ptr[rows, sel.ptr_idx]
+
+
+def clear_window(bank: MemoryBank, frame_idx: int | torch.Tensor, radius: int) -> MemoryBank:
+    """Invalidate the non-conditioning memories within ``radius`` frames of
+    ``frame_idx``, in place (reference ``_clear_non_cond_mem_around_input``,
+    sam2_video_predictor.py:1155-1172): validity is a mask, so the scrub is a
+    bitwise update."""
+    s = bank.valid.shape[1]
+    tt = torch.arange(s, device=bank.valid.device)
+    win = (tt >= frame_idx - radius) & (tt <= frame_idx + radius)
+    bank.valid &= ~(win[None] & ~bank.is_cond)
+    return bank
+
+
+def downgrade_frame(bank: MemoryBank, frame_idx: int | torch.Tensor) -> MemoryBank:
+    """Conditioning frame -> non-conditioning, its memory kept, in place
+    (reference clear_all_prompts_in_frame:804-821)."""
+    if isinstance(frame_idx, torch.Tensor):
+        bank.is_cond.index_fill_(1, frame_idx.reshape(1), False)
+    else:
+        bank.is_cond[:, frame_idx] = False
+    return bank
+
+
+def permute_rows(bank: MemoryBank, perm, keep) -> MemoryBank:
+    """Row n of every field becomes row ``perm[n]`` where ``keep[n]``, else
+    zeros, in place (reference remove_object Step 3,
+    sam2_video_predictor.py:1110-1131). ``perm`` and ``keep`` are host
+    sequences, so the moves are device copies with no host transfer."""
+    for x in (bank.maskmem, bank.obj_ptr, bank.valid, bank.is_cond):
+        src = x.clone()
+        for row, (p, k) in enumerate(zip(perm, keep)):
+            if k:
+                x[row].copy_(src[int(p)])
+            else:
+                x[row].zero_()
+    return bank

@@ -96,7 +96,7 @@ class SAM2Model(nn.Module):
 
     # ------------------------------------------------------- memory attention
     def condition_on_memory(self, frame_idx: int | torch.Tensor, curr_feat: torch.Tensor, bank: MemoryBank,
-                            num_frames: int, track_in_reverse: bool = False,
+                            num_frames: int | torch.Tensor, track_in_reverse: bool = False,
                             max_cond_slots: int | None = None, is_training: bool = False,
                             deterministic: bool = True,
                             gen: torch.Generator | None = None) -> torch.Tensor:
@@ -276,15 +276,17 @@ class SAM2Model(nn.Module):
         return maskmem
 
     # --------------------------------------------------------------- one step
-    def track_step(self, frame_idx: int | torch.Tensor, feats: dict, bank: MemoryBank, num_frames: int,
-                   point_coords=None, point_labels=None, mask_inputs=None,
-                   is_init_cond_frame=False, is_cond_frame=False,
+    def track_step(self, frame_idx: int | torch.Tensor, feats: dict, bank: MemoryBank,
+                   num_frames: int | torch.Tensor, point_coords=None, point_labels=None, mask_inputs=None,
+                   prev_sam_mask_logits=None, is_init_cond_frame=False, is_cond_frame=False,
                    multimask_output=False, track_in_reverse=False, run_mem_encoder=True,
                    max_cond_slots=None):
         """One tracking step (sam2_base.py:1586-1651), eval mode.
 
         feats: {'top': [B, Hc, Wc, C], 's0', 's1': decoder-projected high-res
-        features}. With the memory encoder on, the frame's memory is written
+        features}. ``prev_sam_mask_logits`` ([B, 4fs, 4fs, 1], a re-prompt's
+        previous low-res logits) replaces ``mask_inputs`` as the decoder's mask
+        prompt. With the memory encoder on, the frame's memory is written
         into ``bank`` in place. ``frame_idx`` may be a 0-d long tensor on the
         bank's device: then nothing from the inputs to the memory write reads
         a value back to the host, and the step can be captured in a CUDA
@@ -299,7 +301,8 @@ class SAM2Model(nn.Module):
             else:
                 pix_feat = self.condition_on_memory(frame_idx, feats["top"], bank, num_frames,
                                                     track_in_reverse, max_cond_slots)
-            out = self.sam_heads(pix_feat, point_coords, point_labels, mask_inputs, hr,
+            mi = prev_sam_mask_logits if prev_sam_mask_logits is not None else mask_inputs
+            out = self.sam_heads(pix_feat, point_coords, point_labels, mi, hr,
                                  multimask_output=multimask_output)
         if run_mem_encoder and c.num_maskmem > 0:
             maskmem = self.encode_memory(feats["top"], out["high_res_masks"],

@@ -101,6 +101,21 @@ def compute_axial_rope(
     return _on_device(("rope", dim, end_x, end_y, float(theta)), make, device)
 
 
+def rope_halfsplit_perm(dim: int, n_heads: int) -> np.ndarray:
+    """Permutation of a projection's output channels turning torch's
+    interleaved RoPE pairs (2j, 2j+1) into the half-split pairs (j, d/2+j) of
+    each head: new[:, i] = old[:, perm[i]]. q.k is unchanged when q and k are
+    permuted together (JAX ``ops/posenc.py::rope_halfsplit_perm``)."""
+    dh = dim // n_heads
+    perm = np.empty(dim, np.int64)
+    for h in range(n_heads):
+        base = h * dh
+        for j in range(dh // 2):
+            perm[base + j] = base + 2 * j
+            perm[base + dh // 2 + j] = base + 2 * j + 1
+    return perm
+
+
 def rope_key_tables(
     cos: torch.Tensor, sin: torch.Tensor, n_rope: int, lk: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
