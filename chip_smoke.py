@@ -187,7 +187,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    fixed plan and memory-attention dropout off on the card, once more on the
    card with both switches set (exact qkv-window-attention and CXBlock
    counts), and on the host CPU (plain versions, f32): loss and
-   whole-gradient agreement of each card step with the host's;
+   whole-gradient agreement of each card step with the host's. Then the
+   same step with temporal fusion ``GFTE_FUSION`` (``tools/
+   bench_train_step.py``'s default: GFTE over the top 3 FPN levels at 256
+   channels; the same seeded weights, the fusion's constants at their JAX
+   initial values): warm-up and timed steps with a non-zero gradient in the
+   fusion group, the BatchNorm buffers bit-identical after the steps and
+   exactly the launches of the step without fusion (the fusion is plain
+   PyTorch and launches none of the port's kernels); ms/step and peak memory
+   beside the step without fusion; the fixed-plan step on the card against
+   the host under the same gate. Last, seeded GFTE weights with drawn
+   running statistics written as a reference-name ``.pt`` (the fusion's
+   keys, ``num_batches_tracked`` included) and loaded through
+   ``ckpt_path=``: its buffers hold the statistics, and phase 4's 16-frame
+   run gives the bits of the same weights without fusion (serving passes no
+   frame count, so no fusion runs); phase 7's seconds are printed;
 8. the predictor's long-video and editing paths, ``sam2.1_hiera_t512`` at
    full width in bf16, default switches, the seeded weights of phase 4:
    (a) the weights written as a reference-name ``.pt`` (weights under
@@ -366,7 +380,11 @@ PER_TRAIN_STEP = {"window_attention": 9, "layer_norm": 12, "ln_mlp_residual": 12
 PER_TRACKED_TRAIN_FRAME = {"flash_dropout_fwd": 8, "flash_dropout_bwd": 8}
 PARAM_GROUPS = {"trunk": "image_encoder.trunk.", "neck": "image_encoder.neck.",
                 "memory attention": "memory_attention.", "memory encoder": "memory_encoder.",
-                "prompt encoder": "sam_prompt_encoder.", "mask decoder": "sam_mask_decoder."}
+                "prompt encoder": "sam_prompt_encoder.", "mask decoder": "sam_mask_decoder.",
+                "fusion": "temporal_fusion_"}
+# phase 7's second step: tools/bench_train_step.py's default temporal fusion
+# (variant gfte over the top 3 FPN levels at the neck's 256 channels)
+GFTE_FUSION = ("gfte", 256, 3)
 
 
 def log(*a):
@@ -1950,10 +1968,68 @@ REFERENCE_SHAPES = {"maskmem_tpos_enc": lambda v: v.reshape(v.shape[0], 1, 1, -1
                     "sam_prompt_encoder.no_mask_embed.weight": lambda v: v.reshape(1, -1)}
 
 
+# The temporal fusion's modules, the port's names -> the reference's
+# (sam2_base.py:233-758) for each variant: (kind, reference name), where a
+# BatchNorm3d also gets torch's num_batches_tracked and TCE the
+# temporal_conv its forward never calls (a checkpoint holds both).
+FUSION_REFERENCE_NAMES = {
+    "tce": {"depthwise": ("dw", "depthwise_conv.weight"), "pointwise": ("dense", "pointwise"),
+            "bn1": ("bn", "bn1"), "bn2": ("bn", "bn2"), "attn_fc1": ("dense", "attention.1"),
+            "attn_fc2": ("dense", "attention.3"), "alpha": ("as_is", "alpha")},
+    "gfte": {"tattn_in_proj": ("in_proj", "temporal_attention"),
+             "tattn_out_proj": ("linear", "temporal_attention.out_proj"),
+             "spectral_filters": ("c1", "spectral_filters"),
+             **{f"msdw_{k}": ("dw", f"temporal_convs.{n}.weight") for n, k in enumerate((3, 5, 7))},
+             **{f"msdw_{k}_bias": ("as_is", f"temporal_convs.{n}.bias") for n, k in enumerate((3, 5, 7))},
+             "refine_fc1": ("dense", "refinement.0"), "refine_fc2": ("dense", "refinement.2"),
+             "alpha": ("as_is", "alpha"), "beta": ("as_is", "beta"), "gamma": ("as_is", "gamma"),
+             "gate_fc1": ("dense", "spectral_gate.1"), "gate_fc2": ("dense", "spectral_gate.3"),
+             "norm1": ("bn", "norm1"), "norm2": ("bn", "norm2")},
+    "atsf": {"local_dw": ("dw", "local_temp.0.weight"), "local_bn": ("bn", "local_temp.1"),
+             "global_proj": ("dense", "global_temp.1"), "global_bn": ("bn", "global_temp.2"),
+             "ctattn_fc1": ("dense", "cross_temp_attn.0"), "ctattn_fc2": ("dense", "cross_temp_attn.2"),
+             "scale_selector": ("c111", "scale_selector"), "fgate_fc1": ("dense", "fusion_gate.1"),
+             "fgate_fc2": ("dense", "fusion_gate.3"), "out_proj": ("dense", "output_proj.0"),
+             "out_bn": ("bn", "output_proj.1"), "residual_weight": ("as_is", "residual_weight")},
+}
+BN_REFERENCE_NAMES = {"weight": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def fusion_to_reference(k, v, variant) -> dict:
+    """One temporal-fusion tensor of the port (``temporal_fusion_{i}.*``) ->
+    its reference entries."""
+    import torch
+
+    m = k.split(".")
+    pre, (kind, name) = f"temporal_fusion.{m[0].rsplit('_', 1)[1]}", FUSION_REFERENCE_NAMES[variant][m[1]]
+    if kind == "bn":
+        out = {f"{pre}.{name}.{BN_REFERENCE_NAMES[m[2]]}": v}
+        if m[2] == "mean":
+            out[f"{pre}.{name}.num_batches_tracked"] = torch.tensor(0)
+        return out
+    if kind == "dw":  # [k, C] -> depthwise Conv3d [C, 1, k, 1, 1]
+        out = {f"{pre}.{name}": v.t()[:, None, :, None, None].contiguous()}
+        if variant == "tce":  # its unused temporal_conv, of the same shape
+            out[f"{pre}.temporal_conv.weight"] = torch.zeros_like(out[f"{pre}.{name}"])
+        return out
+    if kind == "dense":  # Linear [out, in] -> Conv3d 1x1x1 [out, in, 1, 1, 1]
+        return {f"{pre}.{name}.{m[2]}": v[..., None, None, None] if m[2] == "weight" else v}
+    if kind == "in_proj":
+        return {f"{pre}.{name}.in_proj_{m[2]}": v}
+    if kind == "linear":
+        return {f"{pre}.{name}.{m[2]}": v}
+    if kind == "c1":
+        return {f"{pre}.{name}": v.reshape(1, -1, 1)}
+    if kind == "c111":
+        return {f"{pre}.{name}": v.reshape(1, -1, 1, 1, 1)}
+    return {f"{pre}.{name}": v}
+
+
 def to_reference_state_dict(sd, cfg) -> dict:
     """The port's state_dict -> a state_dict in the reference's names and
-    layouts (what a MedSAM2 / SAM2.1 ``.pt`` holds): the inverse of the
-    port's importer, written here on its own so that loading it back is a
+    layouts (what a MedSAM2 / SAM2.1 ``.pt`` holds, the temporal fusion's
+    modules and their BatchNorm running statistics included): the inverse of
+    the port's importer, written here on its own so that loading it back is a
     check of that importer."""
     import re
 
@@ -1967,6 +2043,9 @@ def to_reference_state_dict(sd, cfg) -> dict:
     out = {}
     for k, v in sd.items():
         v = v.detach().cpu().clone()
+        if k.startswith("temporal_fusion_"):
+            out.update(fusion_to_reference(k, v, cfg.temporal_fusion.variant))
+            continue
         if k == "sam_prompt_encoder.point_embed":  # [not-a-point, 4 point labels]
             out["sam_prompt_encoder.not_a_point_embed.weight"] = v[:1].clone()
             for i in range(4):
@@ -2011,11 +2090,13 @@ def run_main_path(predictor, video, click, stop_after=None, chunk_size=None, **i
     return out, t1 - t0, time.perf_counter() - t1
 
 
-def profile_run(fn, label, out_dir, wall_s):
-    """``fn()`` once under torch.profiler: device time by kernel, and a Chrome
-    trace ``{label}_trace.json`` in ``out_dir`` when one is given. The idle
-    share is taken against ``wall_s``, an unprofiled run's wall time (the
-    profiler slows the host down); it is returned."""
+def profile_run(fn, label, out_dir, wall_s, host_ops: int = 0):
+    """``fn()`` once under torch.profiler: device time by kernel (and with
+    ``host_ops`` the host's operators of most self CPU time, inflated by the
+    profiler's own cost), and a Chrome trace ``{label}_trace.json`` in
+    ``out_dir`` when one is given. The idle share is taken against
+    ``wall_s``, an unprofiled run's wall time (the profiler slows the host
+    down); it is returned."""
     import os
 
     import torch
@@ -2042,6 +2123,13 @@ def profile_run(fn, label, out_dir, wall_s):
         f"{sum(r[1] for r in rows)} kernel launches")
     for us, count, key in rows[:25]:
         log(f"    {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% x{count:<5d} {key[:110]}")
+    if host_ops:
+        ops = sorted(((e.self_cpu_time_total, e.count, e.key) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CPU), reverse=True)
+        host = sum(r[0] for r in ops)
+        log(f"  host ({label}, profiled): {sum(r[1] for r in ops)} operator calls, self CPU {host / 1e3:.2f} ms")
+        for us, count, key in ops[:host_ops]:
+            log(f"    {us / 1e3:9.3f} ms {100 * us / host:5.1f}% x{count:<6d} {key[:100]}")
     return 1 - busy / wall_us
 
 
@@ -2087,11 +2175,21 @@ def make_train_batch(frames: int, size: int, device):
     return TrainBatch(images, m, torch.ones(1, TRAIN_OBJECTS, dtype=torch.bool, device=device))
 
 
-def build_train_model(state_dict=None, dropout=DROPOUT):
+def fusion_config(fusion=None):
+    """The port's TemporalFusionConfig for ``fusion`` ((variant, channels,
+    levels)), or the default (none)."""
+    from us_video_medsam2_tpu_torch.core.config import TemporalFusionConfig
+
+    return TemporalFusionConfig(*fusion) if fusion else TemporalFusionConfig()
+
+
+def build_train_model(state_dict=None, dropout=DROPOUT, fusion=None):
     """f32 ``sam2.1_hiera_t512`` with the training config's postprocessing
-    (no binarized click memories) and memory-attention dropout ``dropout``;
-    weights from ``state_dict`` or from SEED with the object-score head's
-    output bias at +10, as in phase 4."""
+    (no binarized click memories), memory-attention dropout ``dropout`` and
+    temporal fusion ``fusion`` (none by default); weights from ``state_dict``
+    or from SEED with the object-score head's output bias at +10, as in
+    phase 4 (the fusion's leaves come last, so the others are the same with
+    and without it; its constants at their JAX initial values)."""
     import dataclasses
 
     import torch
@@ -2101,7 +2199,8 @@ def build_train_model(state_dict=None, dropout=DROPOUT):
 
     base = resolve_config("sam2.1_hiera_t512")
     model = build_sam2(base, state_dict=state_dict, seed=SEED, binarize_mask_from_pts_for_mem_enc=False,
-                       memory_attention=dataclasses.replace(base.memory_attention, dropout=dropout))
+                       memory_attention=dataclasses.replace(base.memory_attention, dropout=dropout),
+                       temporal_fusion=fusion_config(fusion))
     if state_dict is None:
         with torch.no_grad():
             model.sam_mask_decoder.obj_score_head.layers_2.bias.fill_(10.0)
@@ -2109,29 +2208,71 @@ def build_train_model(state_dict=None, dropout=DROPOUT):
 
 
 def group_norms(grads: dict) -> dict:
+    """Gradient norm of each parameter group the model has."""
     return {g: sum(float(v.float().square().sum()) for n, v in grads.items() if n.startswith(pre)) ** 0.5
-            for g, pre in PARAM_GROUPS.items()}
+            for g, pre in PARAM_GROUPS.items() if any(n.startswith(pre) for n in grads)}
 
 
-def run_training(profile_dir=None) -> dict:
-    """Phase 5; returns the launches of the timed steps by kernel."""
-    import torch
-
+def train_config():
     from us_video_medsam2_tpu_torch.training.losses import LossConfig
     from us_video_medsam2_tpu_torch.training.optimizer import OptimConfig
     from us_video_medsam2_tpu_torch.training.train_model import TrainSimConfig
-    from us_video_medsam2_tpu_torch.training.train_step import (
-        TrainConfig,
-        create_train_state,
-        make_train_step,
-    )
+    from us_video_medsam2_tpu_torch.training.train_step import TrainConfig
+
+    return TrainConfig(sim=TrainSimConfig(), loss=LossConfig(weight_temporal=0.5, temporal_variant="consistency"),
+                       optim=OptimConfig(total_steps=1000))
+
+
+def run_training(profile_dir=None, out_dir=None) -> dict:
+    """Phase 7: the step without temporal fusion (timed steps, the fixed-plan
+    step on the card, fused, and on the host), then the same with GFTE
+    (timed steps, card against host) and the GFTE checkpoint's serving
+    check; returns the launches of the timed steps without fusion by kernel."""
+    import torch
 
     torch.manual_seed(SEED)  # the residual dropouts draw from torch's global generator
-    cfg = TrainConfig(sim=TrainSimConfig(),
-                      loss=LossConfig(weight_temporal=0.5, temporal_variant="consistency"),
-                      optim=OptimConfig(total_steps=1000))
     model = build_train_model()
     host_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    size = model.cfg.image_size
+    total, walls, peak, plans = timed_train_steps(model, "without temporal fusion", profile_dir)
+    del model
+    fixed_plan_steps(host_sd, size, (("card", "cuda", torch.bfloat16), ("card, fused", "cuda", torch.bfloat16),
+                                     ("host", "cpu", torch.float32)))
+    torch.cuda.empty_cache()
+
+    log(f"  temporal fusion {GFTE_FUSION[0]} (channels {GFTE_FUSION[1]}, top {GFTE_FUSION[2]} FPN levels), "
+        "the same step otherwise")
+    torch.manual_seed(SEED)
+    model = build_train_model(fusion=GFTE_FUSION)
+    gfte_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    _, gwalls, gpeak, _ = timed_train_steps(model, "GFTE", profile_dir, "train_step_gfte", plans)
+    del model
+    log(f"  GFTE step: median {1e3 * statistics.median(gwalls):.2f} ms/step, peak {gpeak / 2**30:.3f} GiB; "
+        f"without fusion: median {1e3 * statistics.median(walls):.2f} ms/step, peak {peak / 2**30:.3f} GiB; "
+        f"step by step (the same plans) GFTE - without: {[round(1e3 * (a - b), 2) for a, b in zip(gwalls, walls)]} ms "
+        f"({card_line()})")
+    fixed_plan_steps(gfte_sd, size, (("card", "cuda", torch.bfloat16), ("host", "cpu", torch.float32)),
+                     fusion=GFTE_FUSION, what="GFTE ")
+    torch.cuda.empty_cache()
+    check_fusion_checkpoint(out_dir)
+    return total
+
+
+def timed_train_steps(model, label, profile_dir=None, profile_label="train_step", plans=None):
+    """One warm-up step and TRAIN_STEPS timed steps of ``model`` on the card
+    (bf16 compute, f32 master weights): finite loss and gradient norm, a
+    non-zero gradient in every parameter group, exact launch counts, the
+    BatchNorm buffers bit-identical after the steps. ``plans``, the step
+    generator's state before each step (and the profiled one) of an earlier
+    run, gives each step that run's plan: the plan is the first draw of a
+    step, the fusion's come after it. Returns (launches of the timed steps,
+    their walls, peak device memory, the generator's states)."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.training.train_step import create_train_state, make_train_step
+
+    cfg = train_config()
+    bufs = {n: b.clone() for n, b in model.named_buffers()}
     state = create_train_state(model, cfg)  # the card, bf16 compute, f32 master weights
     size = model.cfg.image_size
     batch = make_train_batch(TRAIN_T, size, "cuda")
@@ -2146,10 +2287,17 @@ def run_training(profile_dir=None) -> dict:
         return m, time.perf_counter() - t0
 
     total = {k: 0 for k in counters()}
-    walls = []
+    walls, states = [], []
+
+    def next_plan(i):
+        if plans is not None:
+            gen.set_state(plans[i])
+        states.append(gen.get_state())
+
     for i in range(TRAIN_STEPS + 1):  # step 0 is the warm-up
         if i == 1:
             torch.cuda.reset_peak_memory_stats()
+        next_plan(i)
         (m, wall), counts = read_counts(timed_step)
         plan = m["plan"]
         tracked = TRAIN_T - plan.n_init
@@ -2173,31 +2321,48 @@ def run_training(profile_dir=None) -> dict:
             total = {k: total[k] + counts[k] for k in total}
     peak = torch.cuda.max_memory_allocated()
     log(f"  gradient norm by parameter group (last step): { {g: round(v, 6) for g, v in norms.items()} }")
-    log(f"  {TRAIN_STEPS} steps (T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}): median "
+    log(f"  {label}: {TRAIN_STEPS} steps (T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}): median "
         f"{1e3 * statistics.median(walls):.2f} ms/step (host clock around step + synchronize; "
         f"steps {[round(1e3 * w, 2) for w in walls]}), "
         f"peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
+    changed = [n for n, b in model.named_buffers() if not torch.equal(b.cpu(), bufs[n])]
+    if changed:
+        raise AssertionError(f"{label}: the training steps changed the buffers {changed[:4]}")
+    if bufs:
+        log(f"  {len(bufs)} BatchNorm buffers bit-identical after {TRAIN_STEPS + 1} steps")
     if profile_dir:
         def profiled():
             p = step(state, batch, gen)["plan"]
             log(f"  profiled step: plan mode {('point', 'box', 'mask')[p.mode]}, n_init {p.n_init}")
 
-        profile_run(profiled, "train_step", profile_dir, statistics.median(walls))
+        next_plan(TRAIN_STEPS + 1)
+        profile_run(profiled, profile_label, profile_dir, statistics.median(walls), host_ops=20)
+    return total, walls, peak, states
 
-    # one step with a fixed plan and no dropout, on the card and on the host CPU
+
+def fixed_plan_steps(host_sd, size, runs, fusion=None, what=""):
+    """One step with a fixed plan and no memory-attention dropout for each of
+    ``runs`` ((label, device, dtype); "card, fused" with both fused kernels
+    switched on: the same function), each card step's loss and gradient
+    held against the host's."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.training.train_model import TrainSimConfig
+    from us_video_medsam2_tpu_torch.training.train_step import TrainConfig, create_train_state, make_train_step
+
+    cfg = train_config()
     fixed = TrainConfig(sim=TrainSimConfig(prob_to_use_pt_input=0.0, rand_init_cond_frames=False,
                                            num_init_cond_frames=1), loss=cfg.loss, optim=cfg.optim)
-    # (the card once more with both fused kernels switched on: the same function)
     res = {}
-    for label, dev, dtype in (("card", "cuda", torch.bfloat16), ("card, fused", "cuda", torch.bfloat16),
-                              ("host", "cpu", torch.float32)):
+    for label, dev, dtype in runs:
         with fused_switches(label == "card, fused"):
-            st = create_train_state(build_train_model(host_sd, dropout=0.0), fixed, device=dev, dtype=dtype)
+            st = create_train_state(build_train_model(host_sd, dropout=0.0, fusion=fusion), fixed, device=dev,
+                                    dtype=dtype)
             t0 = time.perf_counter()
             m, counts = read_counts(lambda: make_train_step(fixed)(
                 st, make_train_batch(HOST_T, size, dev), torch.Generator().manual_seed(SEED)))
         res[label] = (float(m["core_loss"]), {n: g.detach().float().cpu() for n, g in m["grads"].items()})
-        log(f"  fixed-plan step, {label} ({dtype}, T {HOST_T}): core_loss {res[label][0]:.6f}, "
+        log(f"  {what}fixed-plan step, {label} ({dtype}, T {HOST_T}): core_loss {res[label][0]:.6f}, "
             f"{time.perf_counter() - t0:.1f} s")
         if label == "card, fused":
             # one batched encoder call; every frame's memory encoded once
@@ -2208,7 +2373,7 @@ def run_training(profile_dir=None) -> dict:
                 raise AssertionError(f"fused training step: launch counts {got} != {want}")
         del st, m
     lh, gh = res["host"]
-    for label in ("card", "card, fused"):
+    for label in (r[0] for r in runs if r[0] != "host"):
         lc, gc = res[label]
         loss_rel = abs(lc - lh) / abs(lh)
 
@@ -2218,13 +2383,64 @@ def run_training(profile_dir=None) -> dict:
             return (num / max(sum(float(gh[n].square().sum()) for n in names), 1e-30)) ** 0.5
 
         grad_rel = rel_l2()
-        by_group = {g: round(rel_l2(pre), 4) for g, pre in PARAM_GROUPS.items()}
+        by_group = {g: round(rel_l2(pre), 4) for g, pre in PARAM_GROUPS.items() if any(n.startswith(pre) for n in gh)}
         ok = loss_rel <= LOSS_REL_TOL and grad_rel <= GRAD_VS_HOST_REL_L2_TOL
-        log(f"  {label} vs host: loss rel diff {loss_rel:.4e} (tol {LOSS_REL_TOL}), whole-gradient rel-L2 "
+        log(f"  {what}{label} vs host: loss rel diff {loss_rel:.4e} (tol {LOSS_REL_TOL}), whole-gradient rel-L2 "
             f"{grad_rel:.4e} (tol {GRAD_VS_HOST_REL_L2_TOL}); by group {by_group} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"training step: {label} and host disagree")
-    return total
+            raise AssertionError(f"{what}training step: {label} and host disagree")
+
+
+def check_fusion_checkpoint(out_dir):
+    """Phase 7's loader check: seeded ``sam2.1_hiera_t512`` weights with GFTE
+    (BatchNorm running statistics drawn from SEED) written as a
+    reference-name ``.pt`` with the fusion's keys, a predictor built from it
+    through ``ckpt_path=``, and phase 4's 16-frame run of it against the
+    same weights without fusion, bit for bit: the predictor passes no
+    num_frames, so serving a fusion config computes what it computes
+    without."""
+    import numpy as np
+    import torch
+
+    from us_video_medsam2_tpu_torch.core.build import build_sam2
+    from us_video_medsam2_tpu_torch.inference.video_predictor import build_sam2_video_predictor
+
+    fusion = fusion_config(GFTE_FUSION)
+    model = build_sam2("sam2.1_hiera_t512", seed=SEED, temporal_fusion=fusion)
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        model.sam_mask_decoder.obj_score_head.layers_2.bias.fill_(10.0)
+        for n, b in model.named_buffers():
+            b.copy_(torch.rand(b.shape, generator=g) + 0.5 if n.endswith(".var")
+                    else 0.1 * torch.randn(b.shape, generator=g))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    ref = to_reference_state_dict(sd, model.cfg)
+    out_dir = out_dir or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"seed{SEED}_gfte_reference.pt")
+    torch.save({"model": ref}, path)
+    n_fusion = sum(1 for k in ref if k.startswith("temporal_fusion."))
+    log(f"  wrote {path} ({os.path.getsize(path) / 2**20:.1f} MiB; {n_fusion} temporal_fusion.* keys, "
+        f"num_batches_tracked included)")
+    loaded = build_sam2_video_predictor("sam2.1_hiera_t512", ckpt_path=path, fill_hole_area=8, temporal_fusion=fusion)
+    os.remove(path)
+    bufs = dict(loaded.model.named_buffers())
+    if len(bufs) != 12 or not all(torch.equal(bufs[n].cpu(), sd[n]) for n in bufs):
+        raise AssertionError("the checkpoint's BatchNorm running statistics did not load into the buffers")
+    plain = build_sam2_video_predictor("sam2.1_hiera_t512", fill_hole_area=8,
+                                       state_dict={k: v for k, v in sd.items() if not k.startswith("temporal_fusion_")})
+    video, click, _ = make_video(FRAMES, model.cfg.image_size, SEED)
+    runs = {}
+    for how, pred in (("GFTE from the .pt", loaded), ("without fusion", plain)):
+        (masks, _, _), _ = counted_run(pred, PER_ENCODED_FRAME, f"checkpoint {how}",
+                                       lambda: run_main_path(pred, video, click))
+        runs[how] = masks
+    a, b = runs["GFTE from the .pt"], runs["without fusion"]
+    same = [f for f in b if f in a and np.array_equal(a[f], b[f])]
+    log(f"  GFTE checkpoint: {len(bufs)} BatchNorm buffers loaded; {len(same)} of {len(b)} propagated frames "
+        "bit-identical to the same weights without fusion")
+    if len(same) != len(b) or list(a) != list(b):
+        raise AssertionError("serving the GFTE checkpoint differs from serving the same weights without fusion")
 
 
 @contextlib.contextmanager
@@ -2797,8 +3013,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile a propagation run (graph replays) of each model with the switches "
-                         "off and one with them on, with each run's idle share, and one training step; "
-                         "Chrome traces into DIR")
+                         "off and one with them on, with each run's idle share, and one training step "
+                         "without and one with temporal fusion; Chrome traces into DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -2874,9 +3090,13 @@ def main(argv=None) -> int:
 
     # 7. the training path
     log(f"[7/9] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
-        f"T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}, seeded weights and batch")
-    train_launches = run_training(args.profile)
-    log(f"  launches over the {TRAIN_STEPS} timed steps: {train_launches}")
+        f"T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}, seeded weights and batch; without temporal fusion, then with "
+        f"{GFTE_FUSION[0]}")
+    t0 = time.perf_counter()
+    train_launches = run_training(args.profile, os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                                              "chip_smoke"))
+    log(f"  launches over the {TRAIN_STEPS} timed steps without fusion: {train_launches}")
+    log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # 8. the predictor's long-video and editing paths
     log("[8/9] long video and editing: sam2.1_hiera_t512, bf16, seeded weights; checkpoint, offload and "

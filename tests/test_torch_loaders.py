@@ -5,7 +5,7 @@
    ``from_jax_params`` of the JAX importer's tree, key for key and bit for
    bit; a ``.pt`` with and without a ``"model"`` key loads the same; a key no
    parameter takes, a missing parameter, a wrong shape and a
-   ``temporal_fusion.0.*`` key each raise.
+   ``temporal_fusion.0.*`` key under a config without fusion each raise.
 2. ``core/checkpoint.py``: a native ``.npz`` written by the JAX package's
    ``save_checkpoint`` restores to the same tree and state_dict (empty
    subtrees and scalars included); an unmarked checkpoint raises with JAX's
@@ -95,10 +95,15 @@ def test_wrong_shape_raises():
 
 
 def test_temporal_fusion_keys_raise_naming_a5():
+    """Fusion keys under a config without temporal fusion raise, as in JAX
+    (tests/test_torch_fusion_loaders.py loads them under a fusion config)."""
     sd, cfg = _fixture("mini")
     sd["temporal_fusion.0.alpha"] = np.zeros(1, np.float32)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="fusion variant 'none'") as terr:
         timport.convert_reference_state_dict(sd, port_config(cfg))
+    with pytest.raises(ValueError) as jerr:
+        jax_convert(sd, cfg)
+    assert str(terr.value) == str(jerr.value)
 
 
 @pytest.fixture(scope="module")

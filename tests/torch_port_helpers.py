@@ -35,7 +35,6 @@ def port_config(jcfg) -> port_config_mod.SAM2Config:
             kw[f.name] = v
         return cls(**kw)
 
-    assert jcfg.temporal_fusion.variant == "none"
     return conv(port_config_mod.SAM2Config, jcfg)
 
 

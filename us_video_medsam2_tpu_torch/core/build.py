@@ -1,12 +1,13 @@
 """Model builder (the reference's build_sam.py facade, build_sam.py:63-207).
 
-Resolves a named preset, applies the predictor's postprocessing overrides
-(dynamic multimask stability, binarized click memories), and loads the
-weights: a state_dict in the port's names, a checkpoint file
-(``load_params``: a reference-name ``.pt`` / ``.pth`` such as a MedSAM2
-release, a native ``.npz`` of the JAX package's trainer, or a reference-name
-``.npz``), or, with neither, weights made from a seed. No path needs JAX.
-YAML configs are not read yet (``ROADMAP.md`` A5).
+Resolves a config (a preset's name or a YAML file, ``core/config.py::
+resolve_config``), applies the predictor's postprocessing overrides (dynamic
+multimask stability, binarized click memories), and loads the weights: a
+state_dict in the port's names, a checkpoint file (``load_params``: a
+reference-name ``.pt`` / ``.pth`` such as a MedSAM2 release, a native
+``.npz`` of the JAX package's trainer with its ``batch_stats``, or a
+reference-name ``.npz``), or, with neither, weights made from a seed. No
+path needs JAX.
 """
 
 from __future__ import annotations
@@ -49,8 +50,9 @@ def load_params(cfg: SAM2Config, ckpt_path: str, strict: bool = True) -> dict:
 
 def build_sam2(config: str | SAM2Config = "sam2.1_hiera_t512", state_dict=None, seed: int = 0,
                ckpt_path: str | None = None, **overrides) -> SAM2Model:
-    """f32 SAM2Model on the CPU; weights from ``state_dict`` (strict), else
-    from the checkpoint at ``ckpt_path``, else made from ``seed``."""
+    """f32 SAM2Model on the CPU for ``config`` (a preset's name, a YAML path
+    or a SAM2Config); weights from ``state_dict`` (strict), else from the
+    checkpoint at ``ckpt_path``, else made from ``seed``."""
     overrides.setdefault("dynamic_multimask_via_stability", True)
     overrides.setdefault("binarize_mask_from_pts_for_mem_enc", True)
     cfg = dataclasses.replace(resolve_config(config), **overrides)

@@ -1,18 +1,26 @@
 """Model configuration: frozen dataclasses and named presets.
 
-A copy of the JAX package's ``core/config.py`` limited to what the video
-paths of the two trunks use (temporal fusion and YAML loading are not
-ported). Defaults reproduce ``sam2.1_hiera_t512`` (reference
+A copy of the JAX package's ``core/config.py`` limited to what the port's
+paths use, with its YAML reader (``load_yaml_config``: a ``model:`` mapping,
+OmegaConf-style ``${...}`` references resolved; PyYAML is imported only when
+a YAML file is read). Defaults reproduce ``sam2.1_hiera_t512`` (reference
 sam2/configs/sam2.1_hiera_t512.yaml); the EfficientTAM presets swap the
 Hiera trunk and FPN neck for the plain ViT (ViTDet) trunk and its one-level
-neck (reference sam2/configs/efficientmedsam_s_512_FLARE_RECIST.yaml).
+neck (reference sam2/configs/efficientmedsam_s_512_FLARE_RECIST.yaml). A
+YAML key the port's dataclasses lack raises, as in the JAX reader.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import re
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
+
+
+def _tuplify(x):
+    return tuple(x) if isinstance(x, (list, tuple)) else x
 
 
 @dataclass(frozen=True)
@@ -110,6 +118,22 @@ class MemoryEncoderConfig:
 
 
 @dataclass(frozen=True)
+class TemporalFusionConfig:
+    """The fork's inter-frame feature mixers (reference sam2_base.py:25-758).
+
+    variant: 'none' | 'tce' (TemporalContextExchange) | 'gfte' | 'atsf' | 'gp'.
+    Applied to the top ``num_levels`` FPN levels over the frame axis when
+    ``forward_image`` is given num_frames > 1, which only the training forward
+    does (reference sam2_base.py:1249-1262, gated by `temporalVideo`).
+    """
+
+    variant: str = "none"
+    channels: int = 256
+    num_levels: int = 3
+    alpha: float = 0.1  # residual mixing weight
+
+
+@dataclass(frozen=True)
 class SAM2Config:
     """Full model config == reference SAM2Base kwargs (sam2_base.py:764-948)."""
 
@@ -122,6 +146,7 @@ class SAM2Config:
     neck_scalp: int = 1
     memory_attention: MemoryAttentionConfig = field(default_factory=MemoryAttentionConfig)
     memory_encoder: MemoryEncoderConfig = field(default_factory=MemoryEncoderConfig)
+    temporal_fusion: TemporalFusionConfig = field(default_factory=TemporalFusionConfig)
 
     num_maskmem: int = 7
     sigmoid_scale_for_mem_enc: float = 20.0
@@ -237,9 +262,112 @@ PRESETS = {
 }
 
 
+_CONFIG_TYPES = {
+    "hiera": HieraConfig,
+    "vitdet": ViTDetConfig,
+    "neck": FpnNeckConfig,
+    "memory_attention": MemoryAttentionConfig,
+    "memory_encoder": MemoryEncoderConfig,
+    "temporal_fusion": TemporalFusionConfig,
+}
+
+
+def _from_dict(cls, data: Any):
+    if data is None or not dataclasses.is_dataclass(cls):
+        return data
+    names = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for key, val in data.items():
+        if key not in names:
+            raise KeyError(f"unknown config key {key!r} for {cls.__name__}")
+        sub = _CONFIG_TYPES.get(key)
+        kwargs[key] = _from_dict(sub, val) if sub is not None and isinstance(val, dict) else _tuplify(val)
+    return cls(**kwargs)
+
+
+def sam2_config_from_dict(data: dict) -> SAM2Config:
+    return _from_dict(SAM2Config, data)
+
+
+def _is_num(s: str) -> bool:
+    try:
+        float(s)
+        return True
+    except ValueError:
+        return False
+
+
+def _num(s: str):
+    f = float(s)
+    return int(f) if f.is_integer() else f
+
+
+def _resolve_refs(node, root):
+    """OmegaConf-style interpolation: ${times:a,b}, ${divide:a,b},
+    ${minus:a,b}, ${add:a,...} and ${path.to.key} (reference
+    training/utils/train_utils.py:52-63 resolvers)."""
+
+    def lookup(path: str):
+        cur = root
+        for part in path.split("."):
+            cur = cur[part]
+        return cur
+
+    def arg(a: str):
+        a = a.strip()
+        if a.startswith("${"):
+            return _resolve_refs(a, root)
+        return _num(a) if _is_num(a) else lookup(a)
+
+    def resolve_str(s: str):
+        m = re.fullmatch(r"\$\{([a-z_]+):([^}]+)\}", s)
+        if m:
+            fn, args = m.group(1), [arg(a) for a in m.group(2).split(",")]
+            if fn == "times":
+                out = 1
+                for a in args:
+                    out *= a
+                return out
+            if fn == "divide":
+                return args[0] / args[1]
+            if fn == "minus":
+                return args[0] - args[1]
+            if fn == "add":
+                return sum(args)
+            raise ValueError(f"unknown resolver {fn}")
+        m = re.fullmatch(r"\$\{([^}:]+)\}", s)
+        if m:
+            return lookup(m.group(1))
+        return s
+
+    if isinstance(node, dict):
+        return {k: _resolve_refs(v, root) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_resolve_refs(v, root) for v in node]
+    if isinstance(node, str) and "${" in node:
+        return resolve_str(node)
+    return node
+
+
+def load_yaml_dict(path: str) -> dict:
+    import yaml  # only here: nothing on the card's path reads YAML
+
+    with open(path) as f:
+        data = yaml.safe_load(f) or {}
+    return _resolve_refs(data, data)
+
+
+def load_yaml_config(path: str) -> SAM2Config:
+    data = load_yaml_dict(path)
+    return sam2_config_from_dict(data.get("model", data))
+
+
 def resolve_config(config: str | SAM2Config) -> SAM2Config:
+    """A config, a preset's name, or the path of a YAML file."""
     if isinstance(config, SAM2Config):
         return config
     if config in PRESETS:
         return PRESETS[config]()
+    if os.path.exists(config):
+        return load_yaml_config(config)
     raise ValueError(f"unknown config {config!r}; presets: {sorted(PRESETS)}")

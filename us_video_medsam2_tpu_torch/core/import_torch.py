@@ -1,20 +1,26 @@
 """Reference checkpoint (SAM2 / MedSAM2 names) -> the port's state_dict, without JAX.
 
 Counterpart of the JAX package's ``core/import_torch.py``
-(``convert_reference_state_dict``, ``load_torch_checkpoint``), in numpy only.
-The mapping builds the JAX parameter tree's flat paths, as the JAX importer
-does, and ``core/weights.py::from_jax_params`` turns them into the port's
-names, so the result equals ``from_jax_params`` of the JAX importer's tree
-bit for bit. Covered: the Hiera and ViTDet trunks, both necks, the memory
-attention (its RoPE q/k projections permuted into the half-split layout,
-``docs/PARITY.md`` #13), the memory encoder, the prompt encoder and the mask
-decoder.
+(``convert_reference_state_dict``, ``convert_fusion_module``,
+``load_torch_checkpoint``), in numpy only. The mapping builds the JAX
+variables' flat paths (``params/...`` and ``batch_stats/...``), as the JAX
+importer does, and ``core/weights.py::from_jax_params`` turns them into the
+port's names, so the result equals ``from_jax_params`` of the JAX importer's
+variables bit for bit. Covered: the Hiera and ViTDet trunks, both necks, the
+memory attention (its RoPE q/k projections permuted into the half-split
+layout, ``docs/PARITY.md`` #13), the memory encoder, the prompt encoder, the
+mask decoder, and the fork's temporal fusion (``temporal_fusion.{i}.`` ->
+``temporal_fusion_{i}``; TCE, GFTE and ATSF, whose BatchNorm3d running
+statistics become the ``mean`` / ``var`` buffers; a GP checkpoint raises, as
+in JAX, since the reference GP cannot run).
 
 Unlike the JAX importer, the port is strict as the reference loader is
-(build_sam.py:197-207): a checkpoint key that no parameter takes raises, and
-so does a parameter that the checkpoint lacks or gives another shape. Keys of
-the fork's temporal fusion raise too: the port has no temporal fusion yet,
-and dropping them would run another model.
+(build_sam.py:197-207): a checkpoint key that no parameter or buffer takes
+raises, and so does one that the checkpoint lacks or gives another shape.
+Two kinds of fusion keys are read and dropped on purpose: BatchNorm's
+``num_batches_tracked`` (a count of updates that nothing reads) and TCE's
+``temporal_conv.weight`` (the reference module holds it; its forward never
+calls it).
 """
 
 from __future__ import annotations
@@ -80,6 +86,77 @@ def _linear(out, t, j, sd):
 
 def _conv2d(out, t, j, sd):
     out[f"{j}/kernel"], out[f"{j}/bias"] = _conv(sd[f"{t}.weight"]), sd[f"{t}.bias"]
+
+
+def _dw3d(w):  # depthwise Conv3d (k, 1, 1) weight [C, 1, k, 1, 1] -> [k, C]
+    return np.ascontiguousarray(np.transpose(w[:, 0, :, 0, 0], (1, 0)))
+
+
+def _conv3d_1x1(w):  # Conv3d 1x1x1 weight [out, in, 1, 1, 1] -> Dense kernel [in, out]
+    return np.ascontiguousarray(w[:, :, 0, 0, 0].T)
+
+
+def _fusion(out, stats, sd, variant: str, i: int):
+    """Module ``temporal_fusion.{i}`` of a reference checkpoint (JAX
+    ``convert_fusion_module``: safeTCE sam2_base.py:697-758, GFTE :372-527,
+    ATSF :233-361) -> ``temporal_fusion_{i}``; BatchNorm3d running
+    statistics into ``stats``."""
+    t, j = f"temporal_fusion.{i}", f"temporal_fusion_{i}"
+
+    def drop(key):  # counted as read, and not carried
+        sd.read.add(key)
+
+    def bn(tn, jn):
+        _norm(out, f"{t}.{tn}", f"{j}/{jn}", sd)
+        stats[f"{j}/{jn}/mean"] = sd[f"{t}.{tn}.running_mean"]
+        stats[f"{j}/{jn}/var"] = sd[f"{t}.{tn}.running_var"]
+        drop(f"{t}.{tn}.num_batches_tracked")
+
+    def dense(tn, jn, bias=True):
+        out[f"{j}/{jn}/kernel"] = _conv3d_1x1(sd[f"{t}.{tn}.weight"])
+        if bias:
+            out[f"{j}/{jn}/bias"] = sd[f"{t}.{tn}.bias"]
+
+    if variant == "tce":
+        out[f"{j}/depthwise"] = _dw3d(sd[f"{t}.depthwise_conv.weight"])
+        drop(f"{t}.temporal_conv.weight")
+        dense("pointwise", "pointwise", bias=False)
+        bn("bn1", "bn1")
+        bn("bn2", "bn2")
+        dense("attention.1", "attn_fc1")
+        dense("attention.3", "attn_fc2")
+        out[f"{j}/alpha"] = sd[f"{t}.alpha"]
+    elif variant == "gfte":
+        out[f"{j}/tattn_in_proj/kernel"] = _lin(sd[f"{t}.temporal_attention.in_proj_weight"])
+        out[f"{j}/tattn_in_proj/bias"] = sd[f"{t}.temporal_attention.in_proj_bias"]
+        _linear(out, f"{t}.temporal_attention.out_proj", f"{j}/tattn_out_proj", sd)
+        out[f"{j}/spectral_filters"] = sd[f"{t}.spectral_filters"].reshape(-1)
+        for n, k in enumerate((3, 5, 7)):
+            out[f"{j}/msdw_{k}"] = _dw3d(sd[f"{t}.temporal_convs.{n}.weight"])
+            out[f"{j}/msdw_{k}_bias"] = sd[f"{t}.temporal_convs.{n}.bias"]
+        dense("refinement.0", "refine_fc1")
+        dense("refinement.2", "refine_fc2")
+        for nm in ("alpha", "beta", "gamma"):
+            out[f"{j}/{nm}"] = sd[f"{t}.{nm}"]
+        dense("spectral_gate.1", "gate_fc1")
+        dense("spectral_gate.3", "gate_fc2")
+        bn("norm1", "norm1")
+        bn("norm2", "norm2")
+    elif variant == "atsf":
+        out[f"{j}/local_dw"] = _dw3d(sd[f"{t}.local_temp.0.weight"])
+        bn("local_temp.1", "local_bn")
+        dense("global_temp.1", "global_proj", bias=False)
+        bn("global_temp.2", "global_bn")
+        dense("cross_temp_attn.0", "ctattn_fc1")
+        dense("cross_temp_attn.2", "ctattn_fc2")
+        out[f"{j}/scale_selector"] = sd[f"{t}.scale_selector"].reshape(-1)
+        dense("fusion_gate.1", "fgate_fc1")
+        dense("fusion_gate.3", "fgate_fc2")
+        dense("output_proj.0", "out_proj", bias=False)
+        bn("output_proj.1", "out_bn")
+        out[f"{j}/residual_weight"] = sd[f"{t}.residual_weight"]
+    else:
+        raise ValueError(f"no torch mapping for fusion variant {variant!r}")
 
 
 def _ids(sd, pattern):
@@ -205,15 +282,12 @@ def _mask_decoder(out, sd):
 
 
 def reference_to_flat(sd: Dict[str, np.ndarray], cfg) -> Dict[str, np.ndarray]:
-    """Reference names -> the JAX parameter tree's '/'-joined paths (the JAX
-    importer's map), raising on a key that none of them takes."""
-    fusion = sorted(k for k in sd if k.startswith("temporal_fusion."))
-    if fusion:
-        raise NotImplementedError(
-            f"checkpoint holds temporal fusion weights ({fusion[0]}, ...): the port has no temporal "
-            "fusion yet (ROADMAP A5); loading without them would run another model")
+    """Reference names -> the JAX variables' '/'-joined paths (the JAX
+    importer's map: ``params/...``, and ``batch_stats/...`` for the temporal
+    fusion's running statistics), raising on a key that none of them takes."""
     sd = _Keys(sd)
     out: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
     _trunk(out, sd)
     _neck(out, sd)
     out["maskmem_tpos_enc"] = sd["maskmem_tpos_enc"].reshape(cfg.num_maskmem, -1)
@@ -233,10 +307,14 @@ def reference_to_flat(sd: Dict[str, np.ndarray], cfg) -> Dict[str, np.ndarray]:
         _linear(out, "obj_ptr_proj", "obj_ptr_proj", sd)
     if "obj_ptr_tpos_proj.weight" in sd:
         _linear(out, "obj_ptr_tpos_proj", "obj_ptr_tpos_proj", sd)
+    i = 0
+    while any(k.startswith(f"temporal_fusion.{i}.") for k in sd):
+        _fusion(out, stats, sd, cfg.temporal_fusion.variant, i)
+        i += 1
     left = sorted(set(sd) - sd.read)
     if left:
         raise KeyError(f"{len(left)} checkpoint keys taken by no parameter: {left[:5]}")
-    return out
+    return {**{f"params/{k}": v for k, v in out.items()}, **{f"batch_stats/{k}": v for k, v in stats.items()}}
 
 
 def check_state_dict(sd: Dict[str, torch.Tensor], cfg) -> None:

@@ -28,6 +28,7 @@ from us_video_medsam2_tpu_torch.models.memory_bank import (
 )
 from us_video_medsam2_tpu_torch.models.neck import FpnNeck, ImageEncoder, ViTDetNeck
 from us_video_medsam2_tpu_torch.models.prompt_encoder import PromptEncoder
+from us_video_medsam2_tpu_torch.models.temporal_fusion import build_temporal_fusion
 from us_video_medsam2_tpu_torch.models.vitdet import ViTDet
 from us_video_medsam2_tpu_torch.ops.posenc import sine_pe_1d, sine_pos_embed_2d
 from us_video_medsam2_tpu_torch.ops.resize import resize2d
@@ -72,6 +73,12 @@ class SAM2Model(nn.Module):
             self.no_obj_ptr = nn.Parameter(torch.zeros(d))
         if c.no_obj_embed_spatial:
             self.no_obj_embed_spatial = nn.Parameter(torch.zeros(c.mem_dim))
+        # last, so the other parameters keep their order (and seeded values);
+        # named temporal_fusion_{i} as in the JAX parameter tree
+        fusion = build_temporal_fusion(c.temporal_fusion) or []
+        for i, m in enumerate(fusion):
+            self.add_module(f"temporal_fusion_{i}", m)
+        self.n_fusion = len(fusion)
 
     def set_compute_dtype(self, dtype: torch.dtype, cast_weights: bool = True) -> "SAM2Model":
         """Run in ``dtype`` (bf16 on the card). Serving casts the weight
@@ -84,10 +91,21 @@ class SAM2Model(nn.Module):
         return self
 
     # ------------------------------------------------------------------ images
-    def forward_image(self, images: torch.Tensor, deterministic: bool = True) -> dict:
-        """images [B, H, W, 3] -> feature dict (sam2_base.py:1220-1232)."""
+    def forward_image(self, images: torch.Tensor, deterministic: bool = True, num_frames: int = 1,
+                      gen: torch.Generator | None = None) -> dict:
+        """images [B(·T), H, W, 3] -> feature dict (sam2_base.py:1220-1232).
+
+        With temporal fusion configured and ``num_frames`` > 1 (the training
+        forward only), the top levels of the FPN are mixed across the frame
+        axis before the high-res projections (sam2_base.py:1249-1262), one
+        module a level, zipped against ``fpn[-n:]`` as in JAX; ``gen`` draws
+        their training randomness."""
         out = self.image_encoder(images.to(self.dtype), deterministic)
         fpn = list(out["backbone_fpn"])
+        if self.n_fusion and num_frames > 1:
+            n = self.n_fusion
+            mods = [getattr(self, f"temporal_fusion_{i}") for i in range(n)]
+            fpn = fpn[:-n] + [tf(f, num_frames, deterministic, gen) for tf, f in zip(mods, fpn[-n:])]
         if self.cfg.use_high_res_features_in_sam:
             fpn[0] = self.conv_s0(fpn[0])
             fpn[1] = self.conv_s1(fpn[1])

@@ -128,8 +128,9 @@ def train_forward(model: SAM2Model, gen: torch.Generator, images: torch.Tensor, 
                   sim: TrainSimConfig, is_training: bool = True):
     """images [T, B, H, W, 3] normalized, masks [T, B, O, H, W] bool, on the
     model's device; ``gen`` a CPU generator that draws the plan, the noise
-    generator's seed and the attention-dropout seeds. Returns (stacked outputs
-    by processing position, final logits by frame [T, Bo, H, W], the plan)."""
+    generator's seed, the temporal fusion's draws and the attention-dropout
+    seeds. Returns (stacked outputs by processing position, final logits by
+    frame [T, Bo, H, W], the plan)."""
     cfg = model.cfg
     t, b, h, w, _ = images.shape
     o = masks.shape[2]
@@ -141,7 +142,8 @@ def train_forward(model: SAM2Model, gen: torch.Generator, images: torch.Tensor, 
     plan = sample_plan(gen, sim, t, is_training)
     noise = torch.Generator(dev).manual_seed(int(torch.randint(2**62, (), generator=gen)))
 
-    fpn = model.forward_image(images.reshape(t * b, h, w, 3), deterministic=not is_training)["backbone_fpn"]
+    fpn = model.forward_image(images.reshape(t * b, h, w, 3), deterministic=not is_training, num_frames=t,
+                              gen=gen)["backbone_fpn"]
 
     def per_obj(x):  # [T*B, ...] -> [T, B*O, ...], objects share their frame's features
         return x.reshape(t, b, *x.shape[1:]).repeat_interleave(o, dim=1)
