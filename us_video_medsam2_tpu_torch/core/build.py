@@ -8,6 +8,13 @@ reference-name ``.pt`` / ``.pth`` such as a MedSAM2 release, a native
 ``.npz`` of the JAX package's trainer with its ``batch_stats``, or a
 reference-name ``.npz``), or, with neither, weights made from a seed. No
 path needs JAX.
+
+The predictor builders are importable from here as in JAX
+(``build_sam2_video_predictor``, its ``_npz`` alias and
+``build_efficienttam_video_predictor``, defined beside the predictor in
+``inference/video_predictor.py``, which imports this module: they are
+looked up when first asked for), and ``build_sam2_image_predictor``. Each
+runs on ``device="cuda"`` unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -16,8 +23,10 @@ import dataclasses
 import logging
 
 import numpy as np
+import torch
 
 from us_video_medsam2_tpu_torch.core.config import SAM2Config, resolve_config
+from us_video_medsam2_tpu_torch.core.device import resolve_device
 from us_video_medsam2_tpu_torch.core.weights import from_jax_params, init_random_
 from us_video_medsam2_tpu_torch.models.sam2 import SAM2Model
 
@@ -65,3 +74,37 @@ def build_sam2(config: str | SAM2Config = "sam2.1_hiera_t512", state_dict=None, 
     else:
         model.load_state_dict(state_dict, strict=True)
     return model.eval()
+
+
+_VIDEO_BUILDERS = ("build_sam2_video_predictor", "build_sam2_video_predictor_npz",
+                   "build_efficienttam_video_predictor")
+
+
+def __getattr__(name):
+    if name in _VIDEO_BUILDERS:
+        from us_video_medsam2_tpu_torch.inference import video_predictor
+
+        return getattr(video_predictor, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def build_sam2_image_predictor(config: str | SAM2Config = "sam2.1_hiera_t512", state_dict=None,
+                               device="cuda", dtype=torch.bfloat16, seed: int = 0,
+                               ckpt_path: str | None = None, apply_postprocessing: bool = True,
+                               **overrides):
+    """The image predictor (JAX ``core/build.py:128-141``): the model built as
+    ``build_sam2`` builds it, moved to ``device`` in compute ``dtype``; with
+    ``apply_postprocessing`` holes and sprinkles up to 8 px are removed from
+    its masks, and without it the config keeps its own multimask and
+    click-memory settings."""
+    from us_video_medsam2_tpu_torch.inference.image_predictor import SAM2ImagePredictor
+
+    dev = resolve_device(device)
+    if not apply_postprocessing:
+        cfg = resolve_config(config)
+        overrides.setdefault("dynamic_multimask_via_stability", cfg.dynamic_multimask_via_stability)
+        overrides.setdefault("binarize_mask_from_pts_for_mem_enc", cfg.binarize_mask_from_pts_for_mem_enc)
+    model = build_sam2(config, state_dict, seed=seed, ckpt_path=ckpt_path, **overrides)
+    area = 8 if apply_postprocessing else 0
+    return SAM2ImagePredictor(model.to(dev).set_compute_dtype(dtype), max_hole_area=area,
+                              max_sprinkle_area=area, device=dev)

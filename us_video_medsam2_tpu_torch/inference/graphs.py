@@ -13,7 +13,9 @@ where the body encodes its own frame, copies the frame in, then replays. The
 frame buffer has the dtype of the video's store: f32 for a resident video,
 the host dtype of an offloaded one, or raw uint8, which the body normalizes
 (JAX ``_propagate_chunk_impl``). On the CPU the predictor calls the same
-body eagerly.
+body eagerly. The same body serves batched multi-video serving
+(``inference/serve.py``): there the frame buffer holds one frame for each of
+the bank's rows, each row a video, and each row keeps its own features.
 
 ``FrameGraph`` holds one capture. Before capturing it runs the body once
 eagerly on a side stream (as ``torch.cuda.graphs`` asks): capture executes
@@ -59,7 +61,7 @@ class FrameBuffers:
     num_frames: torch.Tensor  # 0-d long: the video's length (the bank may have more slots)
     bank: MemoryBank  # [O, F, ...]: the body reads it and writes row t
     lows: torch.Tensor  # [F, O, 4fs, 4fs] f32 low-res logits: the body writes row t
-    frame: Optional[torch.Tensor]  # [1, S, S, 3] f32, f16 or raw uint8: the frame the body encodes, or
+    frame: Optional[torch.Tensor]  # [1 or O, S, S, 3] f32, f16 or raw uint8: the frame(s) the body encodes, or
     feats: Optional[Dict[str, torch.Tensor]]  # {top, s0, s1} [F, ...]: precomputed rows
 
 
@@ -82,10 +84,12 @@ def feature_shapes(cfg) -> Dict[str, tuple]:
 
 
 def make_buffers(model, bank: MemoryBank, precompute: bool, new_bank: bool,
-                 frame_dtype: torch.dtype = torch.float32) -> FrameBuffers:
+                 frame_dtype: torch.dtype = torch.float32, per_row_frames: bool = False) -> FrameBuffers:
     """Buffers for ``bank``'s shape on its device; the bank itself unless
     ``new_bank`` (then a zeroed bank of the same shape that the caller copies
-    a state's bank into). The frame buffer has ``frame_dtype``."""
+    a state's bank into). The frame buffer has ``frame_dtype`` and one frame,
+    whose features every row (object) shares, or with ``per_row_frames`` a
+    frame for each row (batched serving: each row a video)."""
     cfg = model.cfg
     o, nf = bank.valid.shape
     dev = bank.valid.device
@@ -96,7 +100,8 @@ def make_buffers(model, bank: MemoryBank, precompute: bool, new_bank: bool,
     if precompute:
         feats = {k: torch.zeros((nf, *s), dtype=model.dtype, device=dev) for k, s in feature_shapes(cfg).items()}
     else:
-        frame = torch.zeros(1, cfg.image_size, cfg.image_size, 3, dtype=frame_dtype, device=dev)
+        rows = o if per_row_frames else 1
+        frame = torch.zeros(rows, cfg.image_size, cfg.image_size, 3, dtype=frame_dtype, device=dev)
     index = torch.zeros((), dtype=torch.long, device=dev)
     return FrameBuffers(index, torch.zeros_like(index), bank, lows, frame, feats)
 
@@ -106,7 +111,9 @@ def frame_body(model, bufs: FrameBuffers, num_frames: int | torch.Tensor, revers
     """One tracked frame: features of frame ``bufs.t``, ``track_step`` with
     the memory encoder (its memory written into ``bufs.bank``), the chosen
     low-res logits into row ``bufs.t`` of ``bufs.lows``. ``num_frames`` is
-    the video's length, an int or ``bufs.num_frames``."""
+    the video's length, an int or ``bufs.num_frames``. The features of a
+    one-frame buffer are expanded to the O rows; those of a buffer of O
+    frames (one a row) are already the rows' own, and expand to themselves."""
     t = bufs.t.reshape(1)
     if bufs.frame is not None:
         feats1 = encode_frames(model, prep_frames(bufs.frame, model.cfg.image_size))

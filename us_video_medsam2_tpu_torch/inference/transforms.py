@@ -1,6 +1,9 @@
 """Image / coordinate transforms for inference (reference sam2/utils/transforms.py).
 
-Counterpart of the JAX package's ``inference/transforms.py``.
+Counterpart of the JAX package's ``inference/transforms.py``: resize to the
+model's square + ImageNet normalization, coordinate and box transforms, and
+mask postprocessing (hole filling + sprinkle removal + resize to the
+original resolution), all on the tensor's device.
 """
 
 from __future__ import annotations
@@ -8,11 +11,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from us_video_medsam2_tpu_torch.ops.connected_components import (
+    fill_holes_in_mask_scores,
+    remove_small_sprinkles,
+)
 from us_video_medsam2_tpu_torch.ops.posenc import _on_device
 from us_video_medsam2_tpu_torch.ops.resize import resize2d
 
-IMG_MEAN = (0.485, 0.456, 0.406)
-IMG_STD = (0.229, 0.224, 0.225)
+IMG_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMG_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def preprocess_images(images: torch.Tensor, image_size: int) -> torch.Tensor:
@@ -53,3 +60,17 @@ def transform_boxes(boxes, orig_hw: tuple[int, int], image_size: int) -> np.ndar
     """[..., 4] XYXY boxes -> [..., 2, 2] corner points at model resolution."""
     boxes = np.asarray(boxes, np.float32)
     return transform_coords(boxes.reshape(*boxes.shape[:-1], 2, 2), orig_hw, image_size)
+
+
+def postprocess_masks(mask_logits: torch.Tensor, orig_hw: tuple[int, int], max_hole_area: float = 0.0,
+                      max_sprinkle_area: float = 0.0) -> torch.Tensor:
+    """Hole fill + sprinkle removal on [..., h, w] low-res logits, then a
+    linear resize to ``orig_hw``, in f32 (reference SAM2Transforms.postprocess_masks)."""
+    x = mask_logits
+    if max_hole_area > 0:
+        x = fill_holes_in_mask_scores(x, int(max_hole_area))
+    if max_sprinkle_area > 0:
+        x = remove_small_sprinkles(x, int(max_sprinkle_area))
+    lead = x.shape[:-2]
+    xh = resize2d(x.reshape(-1, *x.shape[-2:])[..., None].float(), tuple(orig_hw))[..., 0]
+    return xh.reshape(*lead, *orig_hw)

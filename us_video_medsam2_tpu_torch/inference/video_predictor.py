@@ -594,6 +594,10 @@ def build_sam2_video_predictor(config="sam2.1_hiera_t512", state_dict=None, devi
         clear_non_cond_mem_for_multi_obj=clear_non_cond_mem_for_multi_obj)
 
 
+# the NPZ variant is the same builder (init_state takes arrays), as in JAX
+build_sam2_video_predictor_npz = build_sam2_video_predictor
+
+
 def build_efficienttam_video_predictor(config="efficientmedsam_s_512", state_dict=None, device="cuda",
                                        **kwargs):
     """The EfficientTAM family's predictor (reference

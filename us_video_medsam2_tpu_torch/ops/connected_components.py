@@ -9,6 +9,9 @@ sharing the label. Neighbourhood min/max and dilation are 3x3 max-pools and
 the windowed count runs one window row at a time over an unfold view (a
 [B, H, W, 2A+1] compare, never the whole [B, (2A+1)², H, W] window), all
 exact on f32 labels (< 2^24, plus the 2^30 sentinel).
+
+The JAX module's ``connected_components`` labeller and its ``fill_holes_fast``
+(kept there for ablation) lie on no path of either package and are not ported.
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ def small_component_mask(fg: torch.Tensor, max_area: int) -> torch.Tensor:
 
 
 def fill_holes_in_mask_scores(mask: torch.Tensor, max_area: int) -> torch.Tensor:
-    """Set small background holes (<= max_area px) of [..., H, W] logits to 0.1."""
+    """Set small background holes (<= max_area px) of [..., H, W] logits to 0.1
+    (border-touching pockets included)."""
     if max_area <= 0:
         return mask
     shape = mask.shape
