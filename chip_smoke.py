@@ -5,7 +5,9 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
+1. the card: name and power limit (nvidia-smi), torch and CUDA versions, and
+   its free memory; where less than ``MEMORY_NEED_GIB`` is free (another
+   process holds the rest), a wait of up to ``MEMORY_WAIT_S`` for it;
 2. the build: every ``csrc/*.cu`` kernel compiled for sm_90a (timed as set-up),
    with the registers and spills that ``-Xptxas -v`` reports for the kernels
    of ``flash_dropout.cu`` (the forward and its combine must be there),
@@ -259,7 +261,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    automatic mask generator at 32 points a side (a mask at least) and at 8
    against the host (the same count, masks matched at IoU >= 0.99), and
    the times of ``set_image``, ``predict`` and ``generate``;
-10. each path's launch counts, the kernels line (launches summed over the
+10. the training entry point: ``apps/train.py``'s ``main`` on the
+   card at ``sam2.1_hiera_t512`` full width, bf16 with f32 master weights,
+   default switches, from the seeded weights of phase 4 written as a
+   reference-name ``.pt`` (``--init_ckpt``), on a seeded corpus of
+   ``TE_VIDEOS`` NPZ videos of ``TE_FRAMES`` 600x800 frames whose
+   first-frame entropies let the quantum curriculum's dense stage keep all
+   but one: (a) two epochs (``TE_ARGS``: T 4, 3 objects, batch 1, temporal
+   consistency loss): two finite records in ``train_stats.json``, every
+   file of the out-dir, each step exactly phase 7's launches (9 / 12 / 12,
+   8 + 8 dropout-flash a tracked frame), ms a step with its data and step
+   ms, peak device memory, the checkpoint writes' seconds; (b) ``main``
+   again with three epochs on the same out-dir: it resumes at epoch 2 with
+   the saved step and best, the restored parameters and AdamW moments
+   bit-identical to the file, epoch 2's batches by hash those of a fresh
+   loader; (c) ``checkpoint.npz`` served through ``ckpt_path=`` (the native
+   route) over phase 4's 16 frames: phase 4's launches and the bits of a
+   predictor built from the trainer's final state dict; (d) one epoch with
+   ``--temporal_fusion gfte``: finite loss, the same launches, the
+   BatchNorm buffers bit-identical; (e) one epoch as a one-rank NCCL group
+   (``parallel/distributed.py``, the environment set here, a free port):
+   finite loss, the same launches; (f) the native NPZ reader
+   (``UVMS2_NATIVE_NPZ=1``) built and held against numpy on the corpus,
+   every array's bytes (where ``zlib.h`` is missing this is printed and
+   (a)-(e) stand on the default reader);
+11. the run's peak reserved device memory, each path's launch counts, the kernels line (launches summed over the
    runs of both models), the card line, and the device line last.
 
 Exits non-zero without a result when no CUDA device is present or when the
@@ -432,6 +458,20 @@ PARAM_GROUPS = {"trunk": "image_encoder.trunk.", "neck": "image_encoder.neck.",
 # phase 7's second step: tools/bench_train_step.py's default temporal fusion
 # (variant gfte over the top 3 FPN levels at the neck's 256 channels)
 GFTE_FUSION = ("gfte", 256, 3)
+# phase 10: the training entry point on a seeded NPZ corpus
+TE_VIDEOS, TE_FRAMES, TE_HW = 6, 12, (600, 800)
+TE_ARGS = ["--num_frames", str(TRAIN_T), "--max_num_objects", str(TRAIN_OBJECTS), "--batch_size", "1",
+           "--curriculum", "quantum", "--temporal_loss", "consistency", "--seed", str(SEED)]
+
+
+# device memory the whole run needs free when it starts: its peak reserved
+# (phase 11 prints it; 11.344 GiB on an H100) with room for what the CUDA
+# context, NCCL and the kernels' library hold beside PyTorch's allocator; how
+# long, and how often, to wait for it (the run takes 7-10 minutes of the
+# 20 it is given)
+MEMORY_NEED_GIB = 16
+MEMORY_WAIT_S = 120
+MEMORY_POLL_S = 5
 
 
 def log(*a):
@@ -446,6 +486,56 @@ def card_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def card_memory() -> str:
+    """The card's memory as nvidia-smi sees it, with every compute process it
+    can name (processes of other containers use memory but are not listed)."""
+    try:
+        used = subprocess.run(["nvidia-smi", "--query-gpu=memory.used,memory.total", "--format=csv,noheader"],
+                              capture_output=True, text=True, timeout=60).stdout.strip()
+        apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                              capture_output=True, text=True, timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unreadable ({e})"
+    return f"used, total {used}; compute processes: {apps.replace(chr(10), '; ') or 'none listed'}"
+
+
+def wait_for_memory() -> None:
+    """Wait until the card has MEMORY_NEED_GIB free, or MEMORY_WAIT_S have
+    passed: memory that another process holds when this one starts (one still
+    tearing down, or one sharing the card) would fail a phase with an
+    out-of-memory error that says nothing of the port. The run goes on after
+    the wait either way, and the free memory is printed."""
+    import torch
+
+    need = MEMORY_NEED_GIB * 2**30
+    t0 = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    log(f"  device memory: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free; {card_memory()}")
+    waited, polls = 0.0, 0
+    while free < need and waited < MEMORY_WAIT_S:
+        if polls % 6 == 0:
+            log(f"  waiting for {MEMORY_NEED_GIB} GiB free: {free / 2**30:.2f} GiB free after {waited:.0f} s; "
+                f"{card_memory()}")
+        time.sleep(MEMORY_POLL_S)
+        polls += 1
+        free, _ = torch.cuda.mem_get_info()
+        waited = time.perf_counter() - t0
+    if waited:
+        state = "free" if free >= need else f"still short of {MEMORY_NEED_GIB} GiB; going on"
+        log(f"  device memory after {waited:.0f} s: {free / 2**30:.2f} GiB {state}; {card_memory()}")
+
+
+PEAK_RESERVED = [0]  # the run's most reserved device memory before the last reset of the peak
+
+
+def reset_peak_memory() -> None:
+    """torch.cuda.reset_peak_memory_stats, keeping the run's peak reserved."""
+    import torch
+
+    PEAK_RESERVED[0] = max(PEAK_RESERVED[0], torch.cuda.max_memory_reserved())
+    torch.cuda.reset_peak_memory_stats()
 
 
 def ptxas_report(msgs, sources=("flash_dropout.cu", "layer_norm.cu", "ln_mlp_residual.cu",
@@ -2359,7 +2449,7 @@ def timed_train_steps(model, label, profile_dir=None, profile_label="train_step"
 
     for i in range(TRAIN_STEPS + 1):  # step 0 is the warm-up
         if i == 1:
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak_memory()
         next_plan(i)
         (m, wall), counts = read_counts(timed_step)
         plan = m["plan"]
@@ -2799,7 +2889,7 @@ def peak_bytes(fn):
     import torch
 
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory()
     out = fn()
     torch.cuda.synchronize()
     return out, torch.cuda.max_memory_allocated()
@@ -3707,6 +3797,318 @@ def run_entry_points(card, work, name="sam2.1_hiera_t512", device="cuda"):
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------- phase 10
+def write_train_corpus(root, hw=TE_HW, frames=TE_FRAMES) -> dict:
+    """Phase 10's corpus under ``root``: TE_VIDEOS NPZ videos of TE_FRAMES
+    600x800 uint8 frames (``make_video``'s blobs, grey, in 8 levels) with
+    ``gts`` of 1-3 classes, each visible on frame 0; the last video's low
+    bits are uniform noise, which lifts its first-frame entropy above the
+    quantum curriculum's dense threshold (2.5) while the others stay below
+    it. Returns {video: entropy}."""
+    import numpy as np
+
+    from us_video_medsam2_tpu_torch.training.data import _first_frame_entropy
+
+    os.makedirs(root, exist_ok=True)
+    h, w = hw
+    rng = np.random.default_rng(SEED + 40)
+    ent = {}
+    for v in range(TE_VIDEOS):
+        video, _, masks = make_video(frames, h, SEED + 40 + v, width=w)
+        imgs = gray(video) // 32 * 32 + 16  # 8 grey levels: an entropy of ln 8 at most
+        if v == TE_VIDEOS - 1:
+            imgs = rng.integers(0, 256, imgs.shape).astype(np.uint8) | (imgs & 0xE0)
+        gts = np.zeros(imgs.shape, np.uint8)
+        for c in range(1 + v % 3):
+            gts[masks[:, c]] = c + 1
+        if any(not (gts[0] == c + 1).any() for c in range(1 + v % 3)):
+            raise AssertionError(f"corpus video {v}: a class is not visible on frame 0")
+        name = f"video_{v}"
+        np.savez_compressed(os.path.join(root, f"{name}.npz"), imgs=imgs, gts=gts)
+        ent[name] = _first_frame_entropy(root, name)
+    return ent
+
+
+class StepRecorder:
+    """Wraps the trainer's ``make_train_step`` so that each step's launches
+    are read around it (every count set to 0 just before), with its plan and
+    loss."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __enter__(self):
+        from us_video_medsam2_tpu_torch.training import trainer
+
+        self._orig = trainer.make_train_step
+        orig, steps = self._orig, self.steps
+
+        def make_train_step(cfg):
+            step = orig(cfg)
+
+            def counted(state, batch, gen):
+                m, counts = read_counts(lambda: step(state, batch, gen))
+                steps.append((m["plan"], counts, float(m["core_loss"])))
+                return m
+
+            return counted
+
+        trainer.make_train_step = make_train_step
+        return self
+
+    def __exit__(self, *exc):
+        from us_video_medsam2_tpu_torch.training import trainer
+
+        trainer.make_train_step = self._orig
+
+    def check(self, what, on_card=True, tracked_frames=TRAIN_T) -> None:
+        """Every step's launches exactly phase 7's (on the card: the host's
+        plain versions count nothing); finite losses."""
+        for i, (plan, counts, loss) in enumerate(self.steps):
+            expected = {k: 0 for k in counts}
+            if on_card:
+                expected.update(PER_TRAIN_STEP)
+                expected.update({k: v * (tracked_frames - plan.n_init)
+                                 for k, v in PER_TRACKED_TRAIN_FRAME.items()})
+            if counts != expected:
+                raise AssertionError(f"{what} step {i}: launch counts {counts} != {expected}")
+            if not loss == loss or abs(loss) == float("inf"):
+                raise AssertionError(f"{what} step {i}: core_loss {loss}")
+        log(f"  {what}: {len(self.steps)} steps, each with exactly {'phase 7' if on_card else 'the host'}'s launches "
+            f"(n_init by step {[p.n_init for p, _, _ in self.steps]}); losses "
+            f"{[round(l, 4) for _, _, l in self.steps]}")
+
+
+def batch_hash(batch) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in ("images", "masks", "obj_valid"):
+        h.update(batch[k].tobytes())
+    return h.hexdigest()[:16]
+
+
+def same_arrays(a: dict, b: dict) -> list:
+    """The keys of ``a`` whose arrays differ from ``b``'s in bytes, dtype or
+    shape (or that ``b`` lacks)."""
+    import numpy as np
+
+    return [k for k in a if k not in b or np.asarray(a[k]).dtype != np.asarray(b[k]).dtype
+            or np.asarray(a[k]).shape != np.asarray(b[k]).shape
+            or np.asarray(a[k]).tobytes() != np.asarray(b[k]).tobytes()]
+
+
+def run_training_entry(card, work, name="sam2.1_hiera_t512", device="cuda", hw=TE_HW, frames=TE_FRAMES):
+    """Phase 10: ``apps/train.py``'s ``main`` on the card at full width, from
+    the seeded weights of phase 4 written as a reference-name ``.pt``: (a) two
+    epochs of the quantum curriculum; (b) the run resumed to a third epoch;
+    (c) ``checkpoint.npz`` served; (d) one epoch with GFTE; (e) one epoch in
+    a one-rank NCCL group; (f) the native NPZ reader against numpy. With
+    ``device`` "cpu" (the tests' tiny run) the same on the host's plain
+    versions, a gloo group in (e) and no launch or memory gates."""
+    import numpy as np
+    import torch
+
+    from us_video_medsam2_tpu_torch.apps import train
+    from us_video_medsam2_tpu_torch.core import checkpoint
+    from us_video_medsam2_tpu_torch.core.build import build_sam2
+    from us_video_medsam2_tpu_torch.core.checkpoint import _flatten as flat_tree
+    from us_video_medsam2_tpu_torch.core.weights import to_jax_params
+    from us_video_medsam2_tpu_torch.inference.video_predictor import build_sam2_video_predictor
+    from us_video_medsam2_tpu_torch.training import data as data_mod
+    from us_video_medsam2_tpu_torch.training import trainer as trainer_mod
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    corpus = os.path.join(work, "corpus")
+    ent = write_train_corpus(corpus, hw, frames)
+    dense = sorted(v for v, e in ent.items() if e < 2.5)
+    log(f"  corpus: {TE_VIDEOS} videos x {frames} frames of {hw[0]}x{hw[1]}; first-frame entropies "
+        f"{ {v: round(e, 3) for v, e in ent.items()} }; the dense stage keeps {dense}")
+    if not 5 <= len(dense) < TE_VIDEOS:
+        raise AssertionError("the corpus must let the dense stage keep at least 5 videos and filter one")
+    model = build_sam2(name, seed=SEED)
+    with torch.no_grad():
+        model.sam_mask_decoder.obj_score_head.layers_2.bias.fill_(10.0)
+    ckpt = os.path.join(work, f"seed{SEED}_{name}_reference.pt")
+    torch.save({"model": to_reference_state_dict(model.state_dict(), model.cfg)}, ckpt)
+    size = model.cfg.image_size
+    out = os.path.join(work, "run")
+
+    def te_args(out_dir, epochs, *extra):
+        return ["--data_dir", corpus, "--out_dir", out_dir, "--epochs", str(epochs), "--cfg", name, "--init_ckpt",
+                ckpt, "--resolution", str(size), "--device", device, *TE_ARGS, *extra]
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # (a) two epochs
+    log(f"  (a) train: {' '.join(te_args('O', 2))}")
+    sync(device)
+    if on_card:
+        reset_peak_memory()
+    t0 = time.perf_counter()
+    with StepRecorder() as rec:
+        tr = train.main(te_args(out, 2))
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    rec.check("(a)", on_card)
+    with open(os.path.join(out, "train_stats.json")) as f:
+        records = [json.loads(line) for line in f]
+    if len(records) != 2 or not all(np.isfinite(r["Losses/train_all_loss"]) for r in records):
+        raise AssertionError(f"(a) train_stats.json: {records}")
+    files = ["train_stats.json", "best_stats.json", "checkpoint.npz", "checkpoint.meta.json",
+             "best_checkpoint.npz", "best_checkpoint.meta.json", "config_resolved.json",
+             "train_config_resolved.json"]
+    missing = [f for f in files if not os.path.exists(os.path.join(out, f))]
+    if missing:
+        raise AssertionError(f"(a) the out-dir lacks {missing}")
+    data_ms = [1e3 * d for d, _ in tr.step_times]
+    step_ms = [1e3 * s for _, s in tr.step_times]
+    total_ms = statistics.median([d + s for d, s in zip(data_ms, step_ms)])
+    mib = os.path.getsize(os.path.join(out, "checkpoint.npz")) / 2**20
+    log(f"  (a) {len(tr.step_times)} steps in {secs:.1f} s: median {total_ms:.2f} ms a step (data "
+        f"{statistics.median(data_ms):.2f} ms, step {statistics.median(step_ms):.2f} ms; by step data "
+        f"{[round(x, 1) for x in data_ms]}, step {[round(x, 1) for x in step_ms]}), peak device memory "
+        f"{peak / 2**30:.3f} GiB, checkpoint writes {[round(x, 3) for x in tr.save_times]} s ({mib:.1f} MiB); "
+        f"train_stats {[round(r['Losses/train_all_loss'], 4) for r in records]}; on {card}")
+    final_sd = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
+    del tr
+    free()
+
+    # (b) resume to a third epoch
+    saved = flat_tree(checkpoint.restore_checkpoint(os.path.join(out, "checkpoint.npz")))
+    seen, hashes = {}, []
+    orig_epoch, orig_loader = trainer_mod.Trainer.train_epoch, data_mod.TrainMixedVideoLoader.get_loader
+
+    def first_epoch(self, epoch):
+        if not seen:
+            seen.update(epoch=epoch, step=self.state.step, best=self.best,
+                        params=flat_tree({"params": to_jax_params(self.model.state_dict(), self.model_cfg)}),
+                        opt=flat_tree({"opt_state": self.state.optimizer.state_dict(
+                            self.model_cfg, dict(self.model.named_buffers()))}))
+        return orig_epoch(self, epoch)
+
+    def hashed(self, epoch, rngs=None):
+        for b in orig_loader(self, epoch, rngs):
+            hashes.append(batch_hash(b))
+            yield b
+
+    trainer_mod.Trainer.train_epoch, data_mod.TrainMixedVideoLoader.get_loader = first_epoch, hashed
+    try:
+        with StepRecorder() as rec:
+            t0 = time.perf_counter()
+            tr = train.main(te_args(out, 3))
+    finally:
+        trainer_mod.Trainer.train_epoch, data_mod.TrainMixedVideoLoader.get_loader = orig_epoch, orig_loader
+    rec.check("(b)", on_card)
+    want = {"epoch": 2, "step": int(saved["step"]), "best": float(saved["best"])}
+    got = {k: seen[k] for k in want}
+    bad_p = same_arrays({k: v for k, v in saved.items() if k.startswith("params/")}, seen["params"])
+    bad_o = same_arrays({k: v for k, v in saved.items() if k.startswith("opt_state/")}, seen["opt"])
+    loader = train.make_loader(corpus, "quantum", TRAIN_T, TRAIN_OBJECTS, 1, size, SEED)
+    fresh = [batch_hash(b) for b in loader.get_loader(2)]
+    log(f"  (b) resumed at {got} (saved {want}); {sum(k.startswith('params/') for k in saved)} parameter and "
+        f"{sum(k.startswith('opt_state/') for k in saved)} optimizer arrays restored, differing "
+        f"{len(bad_p)} / {len(bad_o)}; epoch 2's batches {hashes}, a fresh loader's {fresh}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if got != want or bad_p or bad_o or hashes != fresh or not hashes:
+        raise AssertionError(f"(b) resume: {got} vs {want}, differing {bad_p[:3]} {bad_o[:3]}, batches "
+                             f"{hashes} vs {fresh}")
+    final_sd = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
+    del tr
+    free()
+
+    # (c) the checkpoint served
+    video, click, _ = make_video(FRAMES, size, SEED)
+    runs = {}
+    for how, kw in (("checkpoint.npz", {"ckpt_path": os.path.join(out, "checkpoint.npz")}),
+                    ("in-memory state dict", {"state_dict": final_sd})):
+        pred = build_sam2_video_predictor(name, fill_hole_area=8, device=device, **kw)
+        (masks, _, _), _ = counted_run(pred, PER_ENCODED_FRAME, f"(c) served from the {how}",
+                                       lambda: run_main_path(pred, video, click))
+        runs[how] = masks
+        del pred
+    a, b = runs.values()
+    same = [f for f in a if np.array_equal(a[f], b[f])]
+    log(f"  (c) {len(same)} of {len(a)} frames bit-identical between the two predictors")
+    if len(same) != len(a) or list(a) != list(b):
+        raise AssertionError("(c) the checkpoint served disagrees with the trainer's final weights")
+    free()
+
+    # (d) GFTE
+    gout = os.path.join(work, "run_gfte")
+    t0 = time.perf_counter()
+    with StepRecorder() as rec:
+        tr = train.main(te_args(gout, 1, "--temporal_fusion", "gfte"))
+    rec.check("(d) GFTE", on_card)
+    before = dict(train.build_model(tr.model_cfg, ckpt).named_buffers())
+    after = {n: b.detach().cpu() for n, b in tr.model.named_buffers()}
+    changed = [n for n in before if not torch.equal(before[n], after[n])]
+    log(f"  (d) GFTE: {len(after)} BatchNorm buffers, {len(changed)} changed; {time.perf_counter() - t0:.1f} s")
+    if not after or changed:
+        raise AssertionError(f"(d) the GFTE epoch changed the buffers {changed[:4]}")
+    del tr
+    free()
+
+    # (e) one rank of an NCCL group
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        with StepRecorder() as rec:
+            tr = train.main(te_args(os.path.join(work, "run_rank"), 1))
+        backend = dist.get_backend() if dist.is_initialized() else None
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    rec.check("(e) one rank", on_card)
+    want_backend = "nccl" if on_card else "gloo"
+    log(f"  (e) one rank: process group backend {backend}, {time.perf_counter() - t0:.1f} s")
+    if backend != want_backend:
+        raise AssertionError(f"(e) the run did not go through a {want_backend} group (backend {backend})")
+    del tr
+    free()
+
+    # (f) the native reader
+    from us_video_medsam2_tpu_torch.training import native_npz
+
+    if not os.path.exists("/usr/include/zlib.h"):
+        log("  (f) zlib.h is missing on this machine: the native reader cannot be built; (a)-(e) ran on the "
+            "default (numpy) reader")
+    else:
+        os.environ["UVMS2_NATIVE_NPZ"] = "1"
+        try:
+            t0 = time.perf_counter()
+            native_npz.build()
+            build_s = time.perf_counter() - t0
+            diffs, n = [], 0
+            for f in sorted(os.listdir(corpus)):
+                got = native_npz.load_npz(os.path.join(corpus, f))
+                with np.load(os.path.join(corpus, f)) as ref:
+                    want = {k: ref[k] for k in ref.files}
+                n += len(want)
+                diffs += [f"{f}:{k}" for k in same_arrays(want, got)] + [f"{f}:{k}" for k in got if k not in want]
+        finally:
+            os.environ.pop("UVMS2_NATIVE_NPZ", None)
+        log(f"  (f) native NPZ reader built in {build_s:.2f} s; {n} arrays of {TE_VIDEOS} files against numpy, "
+            f"differing {diffs}")
+        if diffs or not n:
+            raise AssertionError(f"(f) the native reader disagrees with numpy: {diffs}")
+    os.remove(ckpt)
+    log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -3738,7 +4140,8 @@ def main(argv=None) -> int:
     # 1. the card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/10] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[1/11] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    wait_for_memory()
 
     # 2. the build
     t0 = time.perf_counter()
@@ -3746,7 +4149,7 @@ def main(argv=None) -> int:
     lib = _lib.build(log=msgs.append)
     _lib.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/10] build: {lib.name} in {build_s:.2f} s (set-up)")
+    log(f"[2/11] build: {lib.name} in {build_s:.2f} s (set-up)")
     if msgs:
         (lib.parent / "nvcc.log").write_text("\n".join(msgs))
         regs = ptxas_report(msgs)
@@ -3759,7 +4162,7 @@ def main(argv=None) -> int:
         log("  (library built before this run: no compiler report)")
 
     # 3. each kernel against its plain version
-    log("[3/10] kernels vs plain versions at the main-path shapes (bf16)")
+    log("[3/11] kernels vs plain versions at the main-path shapes (bf16)")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(g)
     check_kernel_grads(g)
@@ -3768,15 +4171,15 @@ def main(argv=None) -> int:
     check_window_attention_v1(g, rows)
 
     # 4-5. the main path: sam2.1_hiera_t512, switches off, then on
-    log("[4/10] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
+    log("[4/11] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
     t512 = run_propagation("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME,
-                           PER_ENCODED_FRAME_FUSED, "main_path", "[5/10]", card, args.profile,
+                           PER_ENCODED_FRAME_FUSED, "main_path", "[5/11]", card, args.profile,
                            precompute=PRECOMPUTE_BATCH)
 
     # 6. EfficientMedSAM-S: the same, through the EfficientTAM entry point
-    log("[6/10] EfficientMedSAM-S: efficientmedsam_s_512, bf16, seeded weights and video")
+    log("[6/11] EfficientMedSAM-S: efficientmedsam_s_512, bf16, seeded weights and video")
     eff = run_propagation("efficientmedsam_s_512", build_efficienttam_video_predictor, PER_ENCODED_FRAME_VIT,
-                          PER_ENCODED_FRAME_VIT_FUSED, "efficienttam_s", "[6/10]", card, args.profile,
+                          PER_ENCODED_FRAME_VIT_FUSED, "efficienttam_s", "[6/11]", card, args.profile,
                           VIT_IOU_MARGIN)
     launches = {k: t512["default"][k] + eff["default"][k] for k in t512["default"]}
     for k in ("cxblock", "qkv_window_attention"):  # the kernels of the fused configuration
@@ -3787,7 +4190,7 @@ def main(argv=None) -> int:
          for cfg in ("default", "fused")}))
 
     # 7. the training path
-    log(f"[7/10] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
+    log(f"[7/11] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
         f"T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}, seeded weights and batch; without temporal fusion, then with "
         f"{GFTE_FUSION[0]}")
     t0 = time.perf_counter()
@@ -3797,7 +4200,7 @@ def main(argv=None) -> int:
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # 8. the predictor's long-video and editing paths
-    log("[8/10] long video and editing: sam2.1_hiera_t512, bf16, seeded weights; checkpoint, offload and "
+    log("[8/11] long video and editing: sam2.1_hiera_t512, bf16, seeded weights; checkpoint, offload and "
         "streaming, buckets, editing")
     t0 = time.perf_counter()
     run_long_video_and_editing("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME, card,
@@ -3806,12 +4209,18 @@ def main(argv=None) -> int:
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
     # 9. the entry points: the apps, batched serving, the image path
-    log("[9/10] entry points: sam2.1_hiera_t512, bf16, seeded weights; the apps' mains, batched serving, "
+    log("[9/11] entry points: sam2.1_hiera_t512, bf16, seeded weights; the apps' mains, batched serving, "
         "the image predictor and the automatic mask generator")
     run_entry_points(card, os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
                                         "entry_points"))
 
-    # 10. the kernels line (launches of the dropout kernels from the training
+    # 10. the training entry point: apps/train.py's main, resumed, served, GFTE, one NCCL rank, the native reader
+    log("[10/11] training entry point: apps/train.py at sam2.1_hiera_t512, bf16 with f32 master weights, from a "
+        "reference-name .pt of the seeded weights, on a seeded NPZ corpus")
+    run_training_entry(card, os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                                          "training_entry"))
+
+    # 11. the kernels line (launches of the dropout kernels from the training
     # steps, of cxblock and qkv_window_attention from the fused propagation
     # runs of both models, of the others from their default runs, where the
     # unwired window_attention_v1 launches none), the card line, the device line
@@ -3825,7 +4234,10 @@ def main(argv=None) -> int:
             "library_ms": r.library_ms,
         })
     detail = {r.name: r.shapes for r in rows.values()}
-    log("[10/10] per-shape detail " + json.dumps(detail))
+    log("[11/11] per-shape detail " + json.dumps(detail))
+    peak = max(PEAK_RESERVED[0], torch.cuda.max_memory_reserved())
+    log(f"  the run's peak reserved device memory {peak / 2**30:.3f} GiB (max_memory_reserved; "
+        f"{MEMORY_NEED_GIB} GiB asked free at the start)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -3834,4 +4246,9 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception as e:
+        if type(e).__name__ == "OutOfMemoryError":
+            print(f"chip_smoke: out of device memory; {card_memory()}", file=sys.stderr, flush=True)
+        raise

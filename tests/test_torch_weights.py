@@ -147,6 +147,37 @@ def test_no_jax_imports_in_port_sources():
                 assert root not in ("jax", "jaxlib", "flax", "us_video_medsam2_tpu"), (path, nm)
 
 
+TRAINING_ENTRY_MODULES = ["training/data.py", "training/trainer.py", "training/native_npz.py", "apps/train.py",
+                          "parallel/distributed.py", "core/checkpoint.py", "core/weights.py"]
+
+
+@pytest.mark.parametrize("rel", TRAINING_ENTRY_MODULES)
+def test_training_entry_modules_leave_jax_out(rel):
+    """The training entry point's modules, function-level imports included:
+    no import of JAX or the JAX package in the source, and none in
+    sys.modules after importing the module and calling in the launcher's
+    lazy imports."""
+    path = PORT / rel
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else [node.module or ""]
+            assert not any(nm.split(".")[0] in ("jax", "jaxlib", "flax", "us_video_medsam2_tpu") for nm in names)
+    mod = ".".join(path.relative_to(REPO).with_suffix("").parts)
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({mod!r})\n"
+        "from us_video_medsam2_tpu_torch.apps import train\n"
+        "train.make_loader\n"
+        "import us_video_medsam2_tpu_torch.training.trainer, us_video_medsam2_tpu_torch.parallel.distributed\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'us_video_medsam2_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    # the C++ reader's copy sits under the port, outside csrc/ (the kernels' hash)
+    assert (PORT / "native" / "npz_reader.cpp").exists() and not list((PORT / "csrc").glob("*.cpp"))
+
+
 def test_predictor_without_device_raises_without_cuda(monkeypatch):
     from us_video_medsam2_tpu_torch.core.build import build_sam2
     from us_video_medsam2_tpu_torch.inference.video_predictor import (

@@ -41,7 +41,7 @@ def load_params(cfg: SAM2Config, ckpt_path: str, strict: bool = True) -> dict:
     from us_video_medsam2_tpu_torch.core import checkpoint, import_torch
 
     if ckpt_path.endswith((".pt", ".pth")):
-        sd = import_torch.load_torch_checkpoint(ckpt_path, cfg)
+        sd = import_torch.load_torch_checkpoint(ckpt_path, cfg, strict)
     elif ckpt_path.endswith(".npz"):
         with np.load(ckpt_path) as f:
             native = any(k.startswith("params/") for k in f.files)
@@ -49,7 +49,7 @@ def load_params(cfg: SAM2Config, ckpt_path: str, strict: bool = True) -> dict:
         if native:
             sd = from_jax_params(checkpoint.restore_params(ckpt_path), cfg)
         else:
-            sd = import_torch.convert_reference_state_dict(data, cfg)
+            sd = import_torch.convert_reference_state_dict(data, cfg, strict)
     else:
         sd = from_jax_params(checkpoint.restore_params(ckpt_path), cfg)
     if strict:

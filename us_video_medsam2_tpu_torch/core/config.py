@@ -13,6 +13,7 @@ YAML key the port's dataclasses lack raises, as in the JAX reader.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import re
 from dataclasses import dataclass, field
@@ -360,6 +361,13 @@ def load_yaml_dict(path: str) -> dict:
 def load_yaml_config(path: str) -> SAM2Config:
     data = load_yaml_dict(path)
     return sam2_config_from_dict(data.get("model", data))
+
+
+def snapshot_config(cfg, path: str) -> None:
+    """The resolved dataclass ``cfg`` as JSON at ``path`` (reference
+    training/train.py:142-153); values JSON cannot hold as strings."""
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
 
 
 def resolve_config(config: str | SAM2Config) -> SAM2Config:

@@ -331,9 +331,10 @@ def check_state_dict(sd: Dict[str, torch.Tensor], cfg) -> None:
                            f"shapes differ {[(k, tuple(sd[k].shape), ref[k]) for k in shapes[:5]]}")
 
 
-def convert_reference_state_dict(sd: Dict[str, np.ndarray], cfg) -> Dict[str, torch.Tensor]:
+def convert_reference_state_dict(sd: Dict[str, np.ndarray], cfg, strict: bool = True) -> Dict[str, torch.Tensor]:
     """A reference SAM2Base state_dict (numpy values) -> the port's state_dict
-    for ``SAM2Model(cfg).load_state_dict(strict=True)``."""
+    for ``SAM2Model(cfg).load_state_dict(strict=True)`` (with ``strict``
+    False the model's keys it lacks are not an error)."""
     flat = reference_to_flat(sd, cfg)
     tree: Dict = {}
     for path, v in flat.items():
@@ -343,13 +344,14 @@ def convert_reference_state_dict(sd: Dict[str, np.ndarray], cfg) -> Dict[str, to
             node = node.setdefault(p, {})
         node[parts[-1]] = v
     out = from_jax_params(tree, cfg)
-    check_state_dict(out, cfg)
+    if strict:
+        check_state_dict(out, cfg)
     return out
 
 
-def load_torch_checkpoint(path: str, cfg) -> Dict[str, torch.Tensor]:
+def load_torch_checkpoint(path: str, cfg, strict: bool = True) -> Dict[str, torch.Tensor]:
     """A .pt / .pth checkpoint (weights at the top level or under "model", as
     the fork's training checkpoints keep them) -> the port's state_dict."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model", ckpt)
-    return convert_reference_state_dict({k: v.float().numpy() for k, v in sd.items()}, cfg)
+    return convert_reference_state_dict({k: v.float().numpy() for k, v in sd.items()}, cfg, strict)

@@ -8,7 +8,14 @@
   (``kernels/qkv_window_attention.py``). JAX site:
   ``us_video_medsam2_tpu/models/hiera.py:300``.
 
-Both are off unless set, as in the JAX package, and any non-empty value turns
+and the data pipeline's reader:
+
+- ``UVMS2_NATIVE_NPZ``: NPZ videos are read through the C++ zlib reader
+  (``training/native_npz.py``) instead of numpy. JAX site:
+  ``us_video_medsam2_tpu/training/native_npz.py:64``. On only when set to
+  "1", as in the JAX package; asked for and unbuildable, it raises.
+
+The two kernel switches are off unless set, as in the JAX package, and any non-empty value turns
 one on (the JAX package tests ``os.environ.get(...)`` for truth). JAX reads them
 when it traces; the port reads them at every call.
 """
@@ -24,3 +31,7 @@ def fused_cxblock_enabled() -> bool:
 
 def fused_qkv_window_attention_enabled() -> bool:
     return bool(os.environ.get("US_MEDSAM2_FUSE_QKV_WINDOW_ATTN"))
+
+
+def native_npz_enabled() -> bool:
+    return os.environ.get("UVMS2_NATIVE_NPZ", "0") == "1"

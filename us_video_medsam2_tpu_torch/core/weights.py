@@ -15,6 +15,12 @@ name for name, so the mapping is by rule:
 
 The RoPE attentions' q/k projections keep the half-split channel permutation
 the JAX importer applied; the port's RoPE runs in that layout.
+
+``to_jax_params`` is the exact inverse, used to write checkpoints in the JAX
+tree's names: which of ``kernel`` and ``scale`` a ``weight`` becomes is read
+from the module that owns it (Linear, convolutions -> ``kernel``; LayerNorm,
+BatchNorm -> ``scale``), and the BatchNorm buffers go back to
+``batch_stats``.
 """
 
 from __future__ import annotations
@@ -58,6 +64,57 @@ def from_jax_params(params, cfg=None) -> dict:
             key = ".".join(path)
         sd[key] = torch.from_numpy(np.array(v, order="C"))  # a copy; keeps 0-d leaves 0-d
     return sd
+
+
+def _weight_kinds(cfg) -> tuple[dict, set]:
+    """(module path -> "kernel" / "conv_transpose" / "scale" for every module
+    of ``SAM2Model(cfg)`` that owns a ``weight``, the names of its buffers),
+    from the model built on the meta device."""
+    from us_video_medsam2_tpu_torch.models import layers
+    from us_video_medsam2_tpu_torch.models.sam2 import SAM2Model
+    from us_video_medsam2_tpu_torch.models.temporal_fusion import BatchNorm3d
+
+    with torch.device("meta"):
+        model = SAM2Model(cfg)
+    kinds = {}
+    for name, mod in model.named_modules():
+        if "weight" not in dict(mod.named_parameters(recurse=False)):
+            continue
+        if isinstance(mod, layers.ConvTranspose2x):
+            kinds[name] = "conv_transpose"
+        elif isinstance(mod, (layers.Linear, layers.NHWCConv)):
+            kinds[name] = "kernel"
+        elif isinstance(mod, (layers.LayerNorm, BatchNorm3d)):
+            kinds[name] = "scale"
+        else:
+            raise TypeError(f"{name}: no JAX name known for the weight of a {type(mod).__name__}")
+    return kinds, {n for n, _ in model.named_buffers()}
+
+
+def to_jax_params(state_dict: dict, cfg) -> dict:
+    """The port's state_dict for ``SAM2Model(cfg)`` -> JAX variables
+    ``{"params": ..., "batch_stats": ...}`` (``batch_stats`` only when the
+    model has buffers), nested dicts of f32 numpy arrays: the inverse of
+    ``from_jax_params``, bit for bit."""
+    kinds, buffers = _weight_kinds(cfg)
+    variables: dict = {"params": {}}
+    for key, val in state_dict.items():
+        v = val.detach().cpu().float().numpy() if isinstance(val, torch.Tensor) else np.asarray(val, np.float32)
+        mod, _, leaf = key.rpartition(".")
+        tree = "batch_stats" if key in buffers else "params"
+        if leaf == "weight" and key not in buffers:
+            kind = kinds[mod]
+            if kind == "conv_transpose":  # [in, out, 2, 2] -> [in, 2, 2, out]
+                v, leaf = v.transpose(0, 2, 3, 1), "kernel"
+            elif kind == "kernel":
+                v, leaf = (v.T if v.ndim == 2 else v.transpose(2, 3, 1, 0) if v.ndim == 4 else v), "kernel"
+            else:
+                leaf = "scale"
+        node = variables.setdefault(tree, {})
+        for part in mod.split(".") if mod else ():
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(v, np.float32, order="C")
+    return variables
 
 
 _UNIT_NORMAL = ("pe_gaussian", "point_embed", "no_mask_embed", "iou_token", "mask_tokens",

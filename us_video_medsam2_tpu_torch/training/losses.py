@@ -4,8 +4,11 @@ Counterpart of the JAX package's ``training/losses.py``: the upstream
 multi-step multi-mask loss (reference training/loss_fns.py:20-306) and the
 fork's temporal losses (reference training/loss_fnsJ.py:74-389). Steps that
 did not run carry ``valid`` False and contribute zero; padded objects are
-masked by ``obj_valid``; losses are divided by the valid-object count. The
-temporal term runs over the frame axis of the final-step logits, per object.
+masked by ``obj_valid``; losses are divided by the valid-object count
+(``num_objects``: under data parallelism the global count, which the
+temporal term is divided by too, so that the ranks' losses sum to the
+global batch's). The temporal term runs over the frame axis of the
+final-step logits, per object.
 """
 
 from __future__ import annotations
@@ -186,12 +189,12 @@ TEMPORAL_LOSSES = {
 }
 
 
-def _temporal(cfg: LossConfig, final_logits_by_frame, ow):
+def _temporal(cfg: LossConfig, final_logits_by_frame, ow, num_objects):
     if cfg.weight_temporal == 0.0 or final_logits_by_frame is None:
         return ow.new_zeros(())
     fn = TEMPORAL_LOSSES[cfg.temporal_variant]
     per_obj = torch.stack([fn(final_logits_by_frame[:, i]) for i in range(final_logits_by_frame.shape[1])])
-    return (per_obj * ow).sum() / torch.clamp(ow.sum(), min=1.0)
+    return (per_obj * ow).sum() / num_objects
 
 
 def _core(cfg: LossConfig, losses: dict) -> dict:
@@ -221,7 +224,7 @@ def multi_step_multimasks_and_ious(cfg: LossConfig, frame_outputs, frame_targets
             w = float(step["valid"]) * ow
             for k in losses:
                 losses[k] = losses[k] + (out[k] * w).sum() / num_objects
-    losses["loss_temporal"] = _temporal(cfg, final_logits_by_frame, ow)
+    losses["loss_temporal"] = _temporal(cfg, final_logits_by_frame, ow, num_objects)
     return _core(cfg, losses)
 
 
@@ -252,5 +255,5 @@ def multi_step_loss_stacked(cfg: LossConfig, stacked: Dict[str, torch.Tensor], o
         wc = (stacked["corr_valid"].float()[:, :, None] * ow[None, None, :]).reshape(t * s * bo)
         for k in losses:
             losses[k] = losses[k] + (lc[k] * wc).sum() / num_objects
-    losses["loss_temporal"] = _temporal(cfg, final_logits_by_frame, ow)
+    losses["loss_temporal"] = _temporal(cfg, final_logits_by_frame, ow, num_objects)
     return _core(cfg, losses)

@@ -9,6 +9,14 @@ optax's bias correction and eps outside the square root, then
 ``p -= lr · mult · (adam + wd · p)`` with decoupled weight decay. The step
 count, the schedules and the bias corrections are f32, as in the JAX
 package. Parameters are updated in place.
+
+``state_dict`` / ``load_state_dict`` hold the moments, the step count and,
+with ``accum_steps`` > 1, the micro-step and the accumulator, in the layout
+the JAX trainer writes under ``opt_state/`` (``{"adam": {"count", "mu",
+"nu"}, "count"}``, inside optax.MultiSteps' ``{"mini_step",
+"gradient_step", "inner_opt_state", "acc_grads", "skip_state"}`` when it
+accumulates; trees in the JAX parameter names), so a checkpoint of either
+trainer resumes in the other.
 """
 
 from __future__ import annotations
@@ -148,3 +156,53 @@ class AdamW:
             if m.wd_on:
                 u = u + c.weight_decay * p
             p.add_(-lr * u)
+
+    def _tree(self, tensors: dict, cfg, buffers: dict) -> dict:
+        from us_video_medsam2_tpu_torch.core.weights import to_jax_params
+
+        # the JAX optimizer also holds moments of the BatchNorm statistics
+        # (batch_stats is part of its variables); their gradient is 0, so they stay 0
+        return to_jax_params({**tensors, **{n: torch.zeros_like(b) for n, b in buffers.items()}}, cfg)
+
+    def state_dict(self, cfg, buffers: dict | None = None) -> dict:
+        """The state in the JAX trainer's ``opt_state`` layout for the model
+        of config ``cfg`` whose buffers are ``buffers``: nested dicts of numpy
+        arrays (counts int32, trees f32)."""
+        buffers = buffers or {}
+        count = np.asarray(self.count, np.int32)
+        inner = {"adam": {"count": count, "mu": self._tree(self.mu, cfg, buffers),
+                          "nu": self._tree(self.nu, cfg, buffers)}, "count": count}
+        if self.acc is None:
+            return inner
+        return {"mini_step": np.asarray(self.mini_step, np.int32), "gradient_step": count,
+                "inner_opt_state": inner, "acc_grads": self._tree(self.acc, cfg, buffers), "skip_state": {}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore from the JAX layout (``state_dict``'s, or a JAX trainer's
+        ``opt_state``); the accumulation of the state must be this
+        optimizer's."""
+        from us_video_medsam2_tpu_torch.core.weights import from_jax_params
+
+        accumulating = "inner_opt_state" in state
+        if accumulating != (self.acc is not None):
+            raise ValueError(f"optimizer state {'with' if accumulating else 'without'} gradient accumulation, "
+                             f"but accum_steps is {self.cfg.accum_steps}")
+        inner = state["inner_opt_state"] if accumulating else state
+
+        def load(dst: dict, tree: dict) -> None:
+            src = from_jax_params(tree)
+            missing = sorted(set(dst) - set(src))
+            if missing:
+                raise KeyError(f"optimizer state lacks {missing[:5]}")
+            for n, t in dst.items():
+                if tuple(src[n].shape) != tuple(t.shape):
+                    raise ValueError(f"{n}: {tuple(src[n].shape)} vs {tuple(t.shape)}")
+                t.copy_(src[n])
+
+        load(self.mu, inner["adam"]["mu"])
+        load(self.nu, inner["adam"]["nu"])
+        self.count = int(np.asarray(inner["count"]))
+        if accumulating:
+            load(self.acc, state["acc_grads"])
+            self.mini_step = int(np.asarray(state["mini_step"]))

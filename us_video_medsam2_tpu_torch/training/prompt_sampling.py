@@ -4,7 +4,11 @@ Counterpart of the JAX package's ``training/prompt_sampling.py`` (reference
 sam2/modeling/sam2_utils.py:156-323): noised ground-truth boxes, uniform
 clicks in the error region, and RITM centre clicks through an iterative
 chamfer distance transform. Every random draw comes from the explicit
-``torch.Generator`` the caller passes (of the masks' device).
+``torch.Generator`` the caller passes (of the masks' device). Under data
+parallelism ``shard`` = (offset, total) says where this process's objects
+lie among the global batch's: a draw is made for all ``total`` objects and
+this process's rows taken, so every rank draws what the single-process step
+on the global batch draws for the same objects.
 """
 
 from __future__ import annotations
@@ -30,8 +34,19 @@ def mask_to_box(masks: torch.Tensor) -> torch.Tensor:
     return torch.where(empty[..., None], 0, box).float()
 
 
+def rand_rows(shape, gen: torch.Generator, device, shard=None, axis: int = 0) -> torch.Tensor:
+    """torch.rand of ``shape`` whose ``axis`` holds the objects; with ``shard``
+    (offset, total) the rows [offset, offset + n) of a draw over ``total``."""
+    if shard is None:
+        return torch.rand(shape, generator=gen, device=device)
+    off, total = shard
+    full = list(shape)
+    full[axis] = total
+    return torch.rand(full, generator=gen, device=device).narrow(axis, off, shape[axis])
+
+
 def sample_box_points(masks: torch.Tensor, gen: torch.Generator, noise: float = 0.1,
-                      noise_bound: float = 20.0):
+                      noise_bound: float = 20.0, shard=None):
     """[B, 1, H, W] -> coords [B, 2, 2], labels [B, 2] (2 and 3: box corners)."""
     b, _, h, w = masks.shape
     box = mask_to_box(masks)
@@ -41,7 +56,7 @@ def sample_box_points(masks: torch.Tensor, gen: torch.Generator, noise: float = 
         bh = box[..., 3] - box[..., 1]
         max_dx = torch.clamp(bw * noise, max=noise_bound)
         max_dy = torch.clamp(bh * noise, max=noise_bound)
-        bn = 2 * torch.rand((b, 1, 4), generator=gen, device=masks.device) - 1
+        bn = 2 * rand_rows((b, 1, 4), gen, masks.device, shard) - 1
         box = box + bn * torch.stack([max_dx, max_dy, max_dx, max_dy], dim=-1)
         bounds = torch.tensor([w - 1, h - 1, w - 1, h - 1], dtype=torch.float32, device=masks.device)
         box = torch.clamp(box, min=torch.zeros_like(bounds), max=bounds)
@@ -58,7 +73,7 @@ def _argmax2d(x: torch.Tensor):
 
 
 def sample_random_points_from_errors(gt_masks: torch.Tensor, pred_masks: torch.Tensor | None,
-                                     gen: torch.Generator):
+                                     gen: torch.Generator, shard=None):
     """[B, 1, H, W] bool -> (points [B, 1, 2] f32, labels [B, 1] int32): a
     uniform click among the false positives (label 0) and false negatives
     (label 1); an all-correct prediction draws from the background."""
@@ -68,7 +83,7 @@ def sample_random_points_from_errors(gt_masks: torch.Tensor, pred_masks: torch.T
     fp = ~gt_masks & pred_masks
     fn = gt_masks & ~pred_masks
     all_correct = (gt_masks == pred_masks).all(dim=3, keepdim=True).all(dim=2, keepdim=True)
-    noise = torch.rand((2, b, 1, h, w), generator=gen, device=gt_masks.device)
+    noise = rand_rows((2, b, 1, h, w), gen, gt_masks.device, shard, axis=1)
     max0, pix0 = _argmax2d(noise[0] * (fp | (all_correct & ~gt_masks)))
     max1, pix1 = _argmax2d(noise[1] * fn)
     take1 = (max1 > max0) | ((max1 == max0) & (pix1 < pix0))
@@ -116,9 +131,9 @@ def sample_one_point_from_error_center(gt_masks: torch.Tensor, pred_masks: torch
     return pts, is_positive.int()[:, None]
 
 
-def get_next_point(gt_masks, pred_masks, method: str, gen: torch.Generator | None):
+def get_next_point(gt_masks, pred_masks, method: str, gen: torch.Generator | None, shard=None):
     if method == "uniform":
-        return sample_random_points_from_errors(gt_masks, pred_masks, gen)
+        return sample_random_points_from_errors(gt_masks, pred_masks, gen, shard)
     if method == "center":
         return sample_one_point_from_error_center(gt_masks, pred_masks, gen)
     raise ValueError(f"unknown sampling method {method}")

@@ -125,12 +125,14 @@ def _stack(xs: list, like: torch.Tensor) -> torch.Tensor:
 
 
 def train_forward(model: SAM2Model, gen: torch.Generator, images: torch.Tensor, masks: torch.Tensor,
-                  sim: TrainSimConfig, is_training: bool = True):
+                  sim: TrainSimConfig, is_training: bool = True, shard=None):
     """images [T, B, H, W, 3] normalized, masks [T, B, O, H, W] bool, on the
     model's device; ``gen`` a CPU generator that draws the plan, the noise
     generator's seed, the temporal fusion's draws and the attention-dropout
-    seeds. Returns (stacked outputs by processing position, final logits by
-    frame [T, Bo, H, W], the plan)."""
+    seeds. ``shard`` (offset, total): where these B·O objects lie among the
+    global batch's under data parallelism (``prompt_sampling``). Returns
+    (stacked outputs by processing position, final logits by frame
+    [T, Bo, H, W], the plan)."""
     cfg = model.cfg
     t, b, h, w, _ = images.shape
     o = masks.shape[2]
@@ -170,10 +172,10 @@ def train_forward(model: SAM2Model, gen: torch.Generator, images: torch.Tensor, 
                 step0 = _pack(out, no_mem, coords0, labels0)
             else:
                 if plan.mode == 0:
-                    pts, lbls = get_next_point(gt, None, pt_method, noise)
+                    pts, lbls = get_next_point(gt, None, pt_method, noise, shard)
                     n_pts = 1
                 else:
-                    pts, lbls = sample_box_points(gt, noise)
+                    pts, lbls = sample_box_points(gt, noise, shard=shard)
                     n_pts = 2
                 c, lb = coords0.clone(), labels0.clone()
                 c[:, :n_pts], lb[:, :n_pts] = pts, lbls
@@ -191,7 +193,7 @@ def train_forward(model: SAM2Model, gen: torch.Generator, images: torch.Tensor, 
                 if is_training and sim.prob_to_sample_from_gt > 0:
                     if bool(torch.rand((), generator=gen) < sim.prob_to_sample_from_gt):
                         pred = torch.zeros_like(pred)
-                pts, lbls = get_next_point(gt, pred, pt_method, noise)
+                pts, lbls = get_next_point(gt, pred, pt_method, noise, shard)
                 c, lb = carry["coords"].clone(), carry["labels"].clone()
                 c[:, 2 + j], lb[:, 2 + j] = pts[:, 0], lbls[:, 0]
                 mask_in = carry["low"][:, 0, :, :, None]  # previous logits as the mask prompt

@@ -4,6 +4,15 @@ Counterpart of the JAX package's ``training/train_step.py``. The step runs
 on the card (bf16 compute, f32 master weights cast at use) unless the caller
 asks for the CPU (the plain versions, in the dtype it names). The model's
 parameters and the optimizer's moments are updated in place.
+
+In a ``torch.distributed`` group (``parallel/distributed.py``) each rank
+holds its share of the global batch (equal shares): the valid-object count
+is summed over the ranks before the loss divides by it, the prompt noise is
+drawn for the global batch's objects and sliced (``train_forward``'s
+``shard``), and the gradients are summed over the ranks, so the step equals
+the single-process step on the global batch, as the JAX package's sharded
+step does. The metrics are the global batch's. The dropouts (attention,
+residual, the temporal fusion's) draw on each rank for its own rows.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ import torch
 
 from us_video_medsam2_tpu_torch.core.device import resolve_device
 from us_video_medsam2_tpu_torch.models.sam2 import SAM2Model
+from us_video_medsam2_tpu_torch.parallel import distributed
 from us_video_medsam2_tpu_torch.training.losses import CORE_LOSS_KEY, LossConfig, multi_step_loss_stacked
 from us_video_medsam2_tpu_torch.training.optimizer import AdamW, OptimConfig, global_norm
 from us_video_medsam2_tpu_torch.training.train_model import TrainSimConfig, train_forward
@@ -53,10 +63,21 @@ def create_train_state(model: SAM2Model, cfg: TrainConfig, device: str | torch.d
 
 def _losses(model: SAM2Model, cfg: TrainConfig, batch: TrainBatch, gen: torch.Generator,
             is_training: bool):
-    stacked, finals, plan = train_forward(model, gen, batch.images, batch.masks, cfg.sim, is_training)
-    losses = multi_step_loss_stacked(cfg.loss, stacked, batch.obj_valid.reshape(-1),
-                                     final_logits_by_frame=finals)
+    obj_valid = batch.obj_valid.reshape(-1)
+    shard = num_objects = None
+    if distributed.is_initialized():
+        n = obj_valid.numel()
+        shard = (distributed.rank() * n, distributed.world() * n)
+        num_objects = torch.clamp(distributed.all_reduce_sum(obj_valid.float().sum()), min=1.0)
+    stacked, finals, plan = train_forward(model, gen, batch.images, batch.masks, cfg.sim, is_training, shard)
+    losses = multi_step_loss_stacked(cfg.loss, stacked, obj_valid, final_logits_by_frame=finals,
+                                     num_objects=num_objects)
     return losses, plan
+
+
+def _global(losses: dict) -> dict:
+    """The losses of the global batch: each rank's is its share."""
+    return {k: distributed.all_reduce_sum(v.detach()) for k, v in losses.items()}
 
 
 def make_train_step(cfg: TrainConfig):
@@ -74,11 +95,12 @@ def make_train_step(cfg: TrainConfig):
         losses, plan = _losses(model, cfg, batch, gen, is_training=True)
         losses[CORE_LOSS_KEY].backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in params.items()}
-        if cfg.optim.grad_dtype == "bfloat16":  # the reference's bf16 gradient hook
+        if cfg.optim.grad_dtype == "bfloat16":  # the reference's bf16 gradient hook, before the reduction
             grads = {n: g.to(torch.bfloat16).to(g.dtype) for n, g in grads.items()}
+        grads = distributed.all_reduce_gradients(grads)
         state.optimizer.step(grads)
         state.step += 1
-        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics = _global(losses)
         metrics["grad_norm"] = global_norm(grads.values())
         metrics["grads"] = grads
         metrics["plan"] = plan
@@ -93,6 +115,6 @@ def make_eval_step(cfg: TrainConfig):
 
     @torch.no_grad()
     def eval_step(model: SAM2Model, batch: TrainBatch, gen: torch.Generator) -> dict:
-        return _losses(model, cfg, batch, gen, is_training=False)[0]
+        return _global(_losses(model, cfg, batch, gen, is_training=False)[0])
 
     return eval_step
