@@ -285,7 +285,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``UVMS2_NATIVE_NPZ=1``) built and held against numpy on the corpus,
    every array's bytes (where ``zlib.h`` is missing this is printed and
    (a)-(e) stand on the default reader);
-11. the run's peak reserved device memory, each path's launch counts, the kernels line (launches summed over the
+11. the EfficientTAM training half at ``efficientmedsam_s_512`` full width
+   (ViT-S: embed 384, depth 12, 6 heads of 64, ws 14 in 8 blocks), bf16
+   with f32 master weights, seeded weights: the window-attention calls of
+   a training forward over T·B = 4 frames read from the model (the 32x32
+   map padded to 42x42), the hd-64 kernel there held against its plain
+   version and its gradient (``_lib.with_plain_grad``, no launch in the
+   backward) against autograd of the plain version, ``layer_norm`` and
+   ``ln_mlp_residual`` at D 384 the same way; phase 7's warm-up and
+   TRAIN_STEPS timed steps (median ms a step, peak reserved memory, each
+   step's launches exact: 8 window / 12 LN / 12 MLP, 8 + 8 dropout-flash a
+   tracked frame) and one traced step (device ms); the fixed-plan step on
+   the card (traced) against the host (its FLOPs counted) at phase 7's
+   gate; ``freeze_patterns=("*image_encoder*",)`` for FREEZE_STEPS steps:
+   the encoder bit-identical, every other group moved; ``apps/train.py
+   --cfg efficientmedsam_s_512`` for one epoch on phase 10's corpus from a
+   reference-name ``.pt``, each step's launches exact, its
+   ``checkpoint.npz`` served through ``build_efficienttam_video_predictor``
+   bit for bit like the trainer's final weights, with phase 6's launches;
+12. the measurement layer: the 16-frame propagations of both models traced
+   through ``utils/profiling.trace`` and parsed by ``utils/traceparse``
+   (every kernel's events in the trace equal its launch counter, graph
+   replays included, a short trace taken again up to TRACE_ATTEMPTS times;
+   the parsed busy time within 0.5% of ``key_averages()``'; device ms per
+   tracked frame and the top kernels and modules), the trace events against
+   the counters for phase 7's and 11's traced steps too; FLOPs from
+   ``utils/flops`` on the host's plain
+   versions for both propagations and both fixed-plan training steps, and
+   the MFU of each against the card's dense bf16 peak (an unknown card
+   raises), which must lie in (0, 1]; ``tools/torch_profile_propagation.py``
+   (4 frames) and ``tools/torch_bench_train_step.py`` (one step of T 2) once;
+13. the run's peak reserved device memory, each path's launch counts, the kernels line (launches summed over the
    runs of both models), the card line, and the device line last.
 
 Exits non-zero without a result when no CUDA device is present or when the
@@ -450,6 +480,27 @@ TRAIN_STEPS = 5  # timed steps after one warm-up step
 HOST_T = 4  # frames of the card-vs-host step
 DROPOUT = 0.1  # memory attention (MemoryAttentionConfig.dropout)
 PER_TRAIN_STEP = {"window_attention": 9, "layer_norm": 12, "ln_mlp_residual": 12}  # one batched encoder call
+# phase 11: the EfficientTAM training half at efficientmedsam_s_512 (8 windowed
+# ViT blocks, 12 LN and MLP sites, one batched encoder call a step)
+VIT = "efficientmedsam_s_512"
+PER_TRAIN_STEP_VIT = {"window_attention": 8, "layer_norm": 12, "ln_mlp_residual": 12}
+VIT_TRAIN_WINDOW = (42, 14, 6, False, 32)  # (Hp, ws, nh, q_pool, real_h): the 32x32 map padded to whole windows
+FREEZE_STEPS = 2
+# phase 12: each wrapper's one kernel a launch, by its symbol in the trace
+# (demangled, or mangled where the profiler keeps it)
+KERNEL_SYMBOLS = {
+    "window_attention": r"(::|\d)window_attention_kernel[<(IE]",
+    "qkv_window_attention": r"(::|\d)qkv_window_attention_kernel[<(IE]",
+    "window_attention_v1": r"(::|\d)window_attention_v1_kernel[<(IE]",
+    "layer_norm": r"(::|\d)layer_norm_kernel[<(IE]",
+    "ln_mlp_residual": r"(::|\d)ln_mlp_residual_kernel[<(IE]",
+    "flash_attention": r"(::|\d)flash_fwd_kernel[<(IE]",
+    "flash_dropout_fwd": r"(::fwd::|3fwd6)kernel[<(IE]",
+    "flash_dropout_bwd": r"(::bwd::|3bwd10)bwd_kernel[<(IE]",
+    "cxblock": r"(::|\d)cxblock_kernel[<(IE]",
+}
+TRACE_ATTEMPTS = 3
+BUSY_REL_TOL = 5e-3  # the parsed trace's busy time against key_averages()' on the same profile
 PER_TRACKED_TRAIN_FRAME = {"flash_dropout_fwd": 8, "flash_dropout_bwd": 8}
 PARAM_GROUPS = {"trunk": "image_encoder.trunk.", "neck": "image_encoder.neck.",
                 "memory attention": "memory_attention.", "memory encoder": "memory_encoder.",
@@ -479,13 +530,10 @@ def log(*a):
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit, as nvidia-smi gives them."""
+    from us_video_medsam2_tpu_torch.utils.profiling import card_line as query
+
+    return query()
 
 
 def card_memory() -> str:
@@ -706,26 +754,34 @@ def device_ms(fn, calls: int = 10, attempts: int = 3, by_kernel: bool = False) -
     that ``calls`` calls launched, from torch.profiler's CUDA kernel events,
     after one warm-up call. At these sizes the CUDA-event time of
     back-to-back calls is the host's; this is the card's. Profiles on an
-    H100 have reported no kernel at all, or the kernels of only some of the
-    calls (3 of 10). So a profile whose kernel count is neither a multiple
+    H100 lose the device records of the kernels launched first, so each
+    profile begins with ``utils/profiling.warm_up``'s launches, which are
+    not counted. A profile whose kernel count is still neither a multiple
     of ``calls`` (every call launches the same kernels) nor that of the
     profile before it is taken again, up to ``attempts`` times, and the
-    profile that saw the most kernels is kept. ``by_kernel`` also logs the
-    kept profile's device ms per call of each kernel name."""
+    profile that saw the most kernels is kept. Where none saw a kernel,
+    the CUDA-event time of ``calls`` back-to-back calls stands in, and the
+    log says so. ``by_kernel`` also logs the kept profile's device ms per
+    call of each kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from us_video_medsam2_tpu_torch.utils.profiling import warm_up
+    from us_video_medsam2_tpu_torch.utils.traceparse import WARMUP_RANGE
 
     fn()
     torch.cuda.synchronize()
     best, last = (0, 0.0, {}), None
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warm_up()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         us, kernels, names = 0.0, 0, {}
         for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.device_type == torch.autograd.DeviceType.CUDA and not (
+                    getattr(e, "is_user_annotation", False) or e.key == WARMUP_RANGE or "spin_kernel" in e.key):
                 t = getattr(e, "self_device_time_total", None)
                 t = e.self_cuda_time_total if t is None else t
                 us += t
@@ -737,7 +793,10 @@ def device_ms(fn, calls: int = 10, attempts: int = 3, by_kernel: bool = False) -
         log(f"      the profiler saw {kernels} kernels for {calls} calls (attempt {attempt} of {attempts})")
         last = kernels
     if not best[0]:
-        raise AssertionError("the profiler saw no device time")
+        ms = time_ms(fn, launches=calls, batches=3, warmup=0)
+        log(f"      the profiler saw no kernel in {attempts} profiles: {ms:.4f} ms a call by CUDA events "
+            "stands in for the device time below")
+        return ms
     if by_kernel:
         for key, t in sorted(best[2].items(), key=lambda kv: -kv[1]):
             log(f"      {t / 1e3 / calls:.4f} ms a call: {key[:100]}")
@@ -2314,6 +2373,97 @@ def read_counts(fn):
     return out, {k: w.launches for k, w in wrappers.items()}
 
 
+def trace_mismatch(counts: dict, events) -> dict:
+    """{kernel: (launches, events in the trace)} where the trace's events of
+    a wrapper's kernel (``KERNEL_SYMBOLS``) differ from its launch counter."""
+    import re
+
+    bad = {}
+    for k, n in counts.items():
+        seen = sum(c for name, c in events.items() if re.search(KERNEL_SYMBOLS[k], name))
+        if seen != n:
+            bad[k] = (n, seen)
+    return bad
+
+
+def traced_call(fn, what, trace_dir, modules=None, check_busy=True):
+    """``fn()`` under ``utils/profiling.trace`` (module ranges of
+    ``modules``) with every launch counter set to 0 just before, its trace
+    parsed by ``utils/traceparse`` (which refuses a trace in which a launch
+    has no device event). Each kernel's events in the trace must also equal
+    its launch counter (graph replays included), and with ``check_busy`` the
+    parsed busy time ``key_averages()``' on the same profile within
+    BUSY_REL_TOL (``key_averages`` takes ~20 s over a training step's trace
+    on the card's host: the propagations' are held). A trace short of
+    events is taken again (``fn`` called again), up to TRACE_ATTEMPTS
+    times, then the run fails. ``fn`` must launch the same kernels each
+    call. Returns (the FIRST call's ``fn()``, so that a check of the output
+    holds the first call whatever a retry changed; the complete trace's
+    launches; its ``parse_trace`` tallies)."""
+    import shutil
+
+    import torch
+
+    from us_video_medsam2_tpu_torch.utils import profiling, traceparse
+
+    first = None
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        wrappers = counters()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        with profiling.trace(trace_dir, modules=modules) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        first = out if attempt == 1 else first
+        counts = {k: w.launches for k, w in wrappers.items()}
+        events = traceparse.load_events(trace_dir)
+        lost = traceparse.lost_launches(events)
+        if lost:
+            log(f"  {what}, traced (attempt {attempt}): {len(lost)} launches have no device event, launched "
+                f"{[round(e['ts'] - lost[0]['ts']) for e in lost[:10]]} us after the first of them")
+            continue
+        parsed = traceparse.tallies(events)
+        bad = trace_mismatch(counts, traceparse.event_counts(events))
+        t2 = time.perf_counter()
+        ka = 0.0
+        for e in (prof.key_averages() if check_busy else ()):
+            # the module ranges' device-side annotations are not device work
+            if e.device_type == torch.autograd.DeviceType.CUDA and not (
+                    getattr(e, "is_user_annotation", False) or e.key.startswith(traceparse.MODULE_PREFIX)
+                    or "spin_kernel" in e.key):  # the trace's warm-up launches (torch.cuda._sleep)
+                t = getattr(e, "self_device_time_total", None)
+                ka += e.self_cuda_time_total if t is None else t
+        busy = sum(parsed[0].values())
+        rel = abs(busy - ka) / max(ka, 1e-9)
+        held = (f"{ka / 1e3:.3f} ms by key_averages() (rel {rel:.2e}, tol {BUSY_REL_TOL}, "
+                f"{time.perf_counter() - t2:.1f} s)" if check_busy else "key_averages() not read")
+        log(f"  {what}, traced (attempt {attempt}; run {t1 - t0:.1f} s, trace written and parsed "
+            f"{t2 - t1:.1f} s): device busy {busy / 1e3:.3f} ms parsed from the trace, {held}; every kernel's "
+            f"trace events {'equal' if not bad else 'differ from'} its launches "
+            f"{bad or {k: n for k, n in counts.items() if n}}")
+        if not bad:
+            if check_busy and rel > BUSY_REL_TOL:
+                raise AssertionError(f"{what}: parsed busy {busy} us vs key_averages {ka} us")
+            return first, counts, parsed
+    raise AssertionError(f"{what}: no complete trace, or its kernel events differ from the launch counters, "
+                         f"after {TRACE_ATTEMPTS} attempts")
+
+
+def log_tallies(parsed, per: str, n: int, top: int = 8) -> None:
+    """The parsed trace's busy time (and per ``per`` over ``n``), and its
+    kernels, modules and categories of most device time."""
+    self_op, self_mod, self_cat, _ = parsed
+    busy = sum(self_op.values())
+    log(f"    device busy {busy / 1e3:.3f} ms = {busy / 1e3 / n:.4f} ms per {per}; by category "
+        f"{ {c: round(d / 1e3, 3) for c, d in self_cat.most_common()} }")
+    for title, tally in (("kernels", self_op), ("modules", self_mod)):
+        for name, d in tally.most_common(top):
+            log(f"    {title}: {d / 1e3:9.3f} ms {100 * d / busy:5.1f}%  {name[:100]}")
+
+
 def make_train_batch(frames: int, size: int, device):
     """Seeded moving blobs (``make_video``) normalized as the predictor does,
     and the masks of the first TRAIN_OBJECTS blobs: a TrainBatch of one video."""
@@ -2336,8 +2486,8 @@ def fusion_config(fusion=None):
     return TemporalFusionConfig(*fusion) if fusion else TemporalFusionConfig()
 
 
-def build_train_model(state_dict=None, dropout=DROPOUT, fusion=None):
-    """f32 ``sam2.1_hiera_t512`` with the training config's postprocessing
+def build_train_model(state_dict=None, dropout=DROPOUT, fusion=None, name="sam2.1_hiera_t512"):
+    """f32 preset ``name`` with the training config's postprocessing
     (no binarized click memories), memory-attention dropout ``dropout`` and
     temporal fusion ``fusion`` (none by default); weights from ``state_dict``
     or from SEED with the object-score head's output bias at +10, as in
@@ -2350,7 +2500,7 @@ def build_train_model(state_dict=None, dropout=DROPOUT, fusion=None):
     from us_video_medsam2_tpu_torch.core.build import build_sam2
     from us_video_medsam2_tpu_torch.core.config import resolve_config
 
-    base = resolve_config("sam2.1_hiera_t512")
+    base = resolve_config(name)
     model = build_sam2(base, state_dict=state_dict, seed=SEED, binarize_mask_from_pts_for_mem_enc=False,
                        memory_attention=dataclasses.replace(base.memory_attention, dropout=dropout),
                        temporal_fusion=fusion_config(fusion))
@@ -2376,21 +2526,24 @@ def train_config():
                        optim=OptimConfig(total_steps=1000))
 
 
-def run_training(profile_dir=None, out_dir=None) -> dict:
+def run_training(profile_dir=None, out_dir=None, measure_dir=None):
     """Phase 7: the step without temporal fusion (timed steps, the fixed-plan
-    step on the card, fused, and on the host), then the same with GFTE
-    (timed steps, card against host) and the GFTE checkpoint's serving
-    check; returns the launches of the timed steps without fusion by kernel."""
+    step on the card, fused, and on the host; with ``measure_dir``, see
+    ``fixed_plan_steps``), then the same with GFTE (timed steps, card
+    against host) and the GFTE checkpoint's serving check. Returns (the
+    launches of the timed steps without fusion by kernel, the fixed-plan
+    step's measures or None)."""
     import torch
 
     torch.manual_seed(SEED)  # the residual dropouts draw from torch's global generator
     model = build_train_model()
     host_sd = {k: v.clone() for k, v in model.state_dict().items()}
     size = model.cfg.image_size
-    total, walls, peak, plans = timed_train_steps(model, "without temporal fusion", profile_dir)
+    total, walls, peak, plans, _ = timed_train_steps(model, "without temporal fusion", profile_dir)
     del model
-    fixed_plan_steps(host_sd, size, (("card", "cuda", torch.bfloat16), ("card, fused", "cuda", torch.bfloat16),
-                                     ("host", "cpu", torch.float32)))
+    measures = fixed_plan_steps(host_sd, size, (("card", "cuda", torch.bfloat16),
+                                                ("card, fused", "cuda", torch.bfloat16),
+                                                ("host", "cpu", torch.float32)), measure_dir=measure_dir)
     torch.cuda.empty_cache()
 
     log(f"  temporal fusion {GFTE_FUSION[0]} (channels {GFTE_FUSION[1]}, top {GFTE_FUSION[2]} FPN levels), "
@@ -2398,7 +2551,7 @@ def run_training(profile_dir=None, out_dir=None) -> dict:
     torch.manual_seed(SEED)
     model = build_train_model(fusion=GFTE_FUSION)
     gfte_sd = {k: v.clone() for k, v in model.state_dict().items()}
-    _, gwalls, gpeak, _ = timed_train_steps(model, "GFTE", profile_dir, "train_step_gfte", plans)
+    _, gwalls, gpeak, _, _ = timed_train_steps(model, "GFTE", profile_dir, "train_step_gfte", plans)
     del model
     log(f"  GFTE step: median {1e3 * statistics.median(gwalls):.2f} ms/step, peak {gpeak / 2**30:.3f} GiB; "
         f"without fusion: median {1e3 * statistics.median(walls):.2f} ms/step, peak {peak / 2**30:.3f} GiB; "
@@ -2408,18 +2561,24 @@ def run_training(profile_dir=None, out_dir=None) -> dict:
                      fusion=GFTE_FUSION, what="GFTE ")
     torch.cuda.empty_cache()
     check_fusion_checkpoint(out_dir)
-    return total
+    return total, measures
 
 
-def timed_train_steps(model, label, profile_dir=None, profile_label="train_step", plans=None):
+def timed_train_steps(model, label, profile_dir=None, profile_label="train_step", plans=None,
+                      per_step=PER_TRAIN_STEP, trace_dir=None):
     """One warm-up step and TRAIN_STEPS timed steps of ``model`` on the card
     (bf16 compute, f32 master weights): finite loss and gradient norm, a
     non-zero gradient in every parameter group, exact launch counts, the
     BatchNorm buffers bit-identical after the steps. ``plans``, the step
     generator's state before each step (and the profiled one) of an earlier
     run, gives each step that run's plan: the plan is the first draw of a
-    step, the fusion's come after it. Returns (launches of the timed steps,
-    their walls, peak device memory, the generator's states)."""
+    step, the fusion's come after it. ``per_step``: the trunk kernels'
+    launches a step. With ``trace_dir``, one more step runs under
+    ``utils/profiling.trace`` into that directory, its trace held against
+    the launch counters (``traced_call``; a retry replays the step's plan).
+    Returns (launches of the timed steps, their walls, peak device memory,
+    the generator's states, and the traced step's device ms, launches and
+    tracked frames or None)."""
     import torch
 
     from us_video_medsam2_tpu_torch.training.train_step import create_train_state, make_train_step
@@ -2455,7 +2614,7 @@ def timed_train_steps(model, label, profile_dir=None, profile_label="train_step"
         plan = m["plan"]
         tracked = TRAIN_T - plan.n_init
         expected = {k: 0 for k in counts}
-        expected.update(PER_TRAIN_STEP)
+        expected.update(per_step)
         expected.update({k: v * tracked for k, v in PER_TRACKED_TRAIN_FRAME.items()})
         loss, gnorm = float(m["core_loss"]), float(m["grad_norm"])
         norms = group_norms(m["grads"])
@@ -2490,30 +2649,72 @@ def timed_train_steps(model, label, profile_dir=None, profile_label="train_step"
 
         next_plan(TRAIN_STEPS + 1)
         profile_run(profiled, profile_label, profile_dir, statistics.median(walls), host_ops=20)
-    return total, walls, peak, states
+    traced = None
+    if trace_dir is not None:
+        next_plan(TRAIN_STEPS + 1 + bool(profile_dir))
+        plan_state = gen.get_state()
+
+        def traced_step():
+            gen.set_state(plan_state)  # every attempt draws the same plan
+            return step(state, batch, gen)
+
+        m, counts, parsed = traced_call(traced_step, f"{label} step", trace_dir, model, check_busy=False)
+        tracked = TRAIN_T - m["plan"].n_init
+        expected = {k: 0 for k in counts}
+        expected.update(per_step)
+        expected.update({k: v * tracked for k, v in PER_TRACKED_TRAIN_FRAME.items()})
+        check_counts(f"{label}, the traced step", counts, expected)
+        traced = {"device_ms": sum(parsed[0].values()) / 1e3, "launches": counts, "tracked": tracked}
+        log(f"  {label}: device {traced['device_ms']:.2f} ms in the traced step (tracked frames {tracked}) "
+            f"against a median {1e3 * statistics.median(walls):.2f} ms a step on the host clock; {card_line()}")
+    return total, walls, peak, states, traced
 
 
-def fixed_plan_steps(host_sd, size, runs, fusion=None, what=""):
+def fixed_plan_steps(host_sd, size, runs, fusion=None, what="", name="sam2.1_hiera_t512", per_step=PER_TRAIN_STEP,
+                     measure_dir=None):
     """One step with a fixed plan and no memory-attention dropout for each of
     ``runs`` ((label, device, dtype); "card, fused" with both fused kernels
     switched on: the same function), each card step's loss and gradient
-    held against the host's."""
+    held against the host's. With ``measure_dir``, the "card" step runs
+    under ``utils/profiling.trace`` into that directory, held against the
+    launch counters (``per_step``, the flash kernel 8 a tracked frame; the
+    gate holds the first traced call, taken from the seeded weights), and
+    the "host" step under ``utils/flops.fn_flops``. Returns {"device_ms",
+    "flops"} of the step with ``measure_dir``, else None."""
     import torch
 
     from us_video_medsam2_tpu_torch.training.train_model import TrainSimConfig
     from us_video_medsam2_tpu_torch.training.train_step import TrainConfig, create_train_state, make_train_step
+    from us_video_medsam2_tpu_torch.utils.flops import fn_flops
 
     cfg = train_config()
     fixed = TrainConfig(sim=TrainSimConfig(prob_to_use_pt_input=0.0, rand_init_cond_frames=False,
                                            num_init_cond_frames=1), loss=cfg.loss, optim=cfg.optim)
-    res = {}
+    res, measures = {}, None if measure_dir is None else {}
     for label, dev, dtype in runs:
         with fused_switches(label == "card, fused"):
-            st = create_train_state(build_train_model(host_sd, dropout=0.0, fusion=fusion), fixed, device=dev,
-                                    dtype=dtype)
+            st = create_train_state(build_train_model(host_sd, dropout=0.0, fusion=fusion, name=name), fixed,
+                                    device=dev, dtype=dtype)
             t0 = time.perf_counter()
-            m, counts = read_counts(lambda: make_train_step(fixed)(
-                st, make_train_batch(HOST_T, size, dev), torch.Generator().manual_seed(SEED)))
+
+            def run():
+                return make_train_step(fixed)(st, make_train_batch(HOST_T, size, dev),
+                                              torch.Generator().manual_seed(SEED))
+
+            if measure_dir is not None and label == "card":
+                m, counts, parsed = traced_call(run, f"{what}fixed-plan step, card", measure_dir, st.model,
+                                                check_busy=False)
+                want = {k: 0 for k in counts}
+                want.update(per_step)
+                want["flash_attention"] = PER_TRACKED_FRAME["flash_attention"] * (HOST_T - 1)
+                check_counts(f"{what}fixed-plan step, card, traced", counts, want)
+                measures["device_ms"] = sum(parsed[0].values()) / 1e3
+            elif measure_dir is not None and label == "host":
+                box = {}
+                measures["flops"] = fn_flops(lambda: box.update(m=run()))
+                m, counts = box["m"], {}
+            else:
+                m, counts = read_counts(run)
         res[label] = (float(m["core_loss"]), {n: g.detach().float().cpu() for n, g in m["grads"].items()})
         log(f"  {what}fixed-plan step, {label} ({dtype}, T {HOST_T}): core_loss {res[label][0]:.6f}, "
             f"{time.perf_counter() - t0:.1f} s")
@@ -2542,6 +2743,7 @@ def fixed_plan_steps(host_sd, size, runs, fusion=None, what=""):
             f"{grad_rel:.4e} (tol {GRAD_VS_HOST_REL_L2_TOL}); by group {by_group} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{what}training step: {label} and host disagree")
+    return measures
 
 
 def check_fusion_checkpoint(out_dir):
@@ -3861,13 +4063,14 @@ class StepRecorder:
 
         trainer.make_train_step = self._orig
 
-    def check(self, what, on_card=True, tracked_frames=TRAIN_T) -> None:
-        """Every step's launches exactly phase 7's (on the card: the host's
-        plain versions count nothing); finite losses."""
+    def check(self, what, on_card=True, tracked_frames=TRAIN_T, per_step=PER_TRAIN_STEP) -> None:
+        """Every step's launches exactly phase 7's (``per_step`` the trunk
+        kernels' of the preset; on the card: the host's plain versions count
+        nothing); finite losses."""
         for i, (plan, counts, loss) in enumerate(self.steps):
             expected = {k: 0 for k in counts}
             if on_card:
-                expected.update(PER_TRAIN_STEP)
+                expected.update(per_step)
                 expected.update({k: v * (tracked_frames - plan.n_init)
                                  for k, v in PER_TRACKED_TRAIN_FRAME.items()})
             if counts != expected:
@@ -4109,6 +4312,290 @@ def run_training_entry(card, work, name="sam2.1_hiera_t512", device="cuda", hw=T
     log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------- phase 11
+def vit_window_calls(model, images) -> set:
+    """The (qkv shape, ws, nh, q_pool, real_h) of every window-attention call
+    of one forward_image of ``model`` over ``images``, recorded around the
+    wrapper the ViT blocks call."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.models import hiera
+
+    calls, orig = set(), hiera.window_attention
+
+    def recorder(qkv, ws, nh, pool, real_h=None):
+        calls.add((tuple(qkv.shape), ws, nh, pool, real_h))
+        return orig(qkv, ws, nh, pool, real_h)
+
+    hiera.window_attention = recorder
+    try:
+        with torch.no_grad():
+            model.forward_image(images.reshape(-1, *images.shape[2:]))
+    finally:
+        hiera.window_attention = orig
+    return calls
+
+
+def check_vit_training_kernels(g, model, batch) -> None:
+    """The hd-64 window kernel at the ViT training shape (the shape the
+    model's windowed blocks give it over T·B frames, read from a forward
+    pass), forward against the plain version and its gradient
+    (``_lib.with_plain_grad``, no launch in the backward) against autograd
+    of the plain version; ``layer_norm`` and ``ln_mlp_residual`` at D 384
+    the same way."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.kernels.layer_norm import layer_norm, layer_norm_plain
+    from us_video_medsam2_tpu_torch.kernels.ln_mlp_residual import ln_mlp_residual, ln_mlp_residual_plain
+    from us_video_medsam2_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
+
+    hp, ws, nh, pool, real = VIT_TRAIN_WINDOW
+    want = {((TRAIN_T, hp, hp, 3 * nh * HD_VIT), ws, nh, pool, real)}
+    calls = vit_window_calls(model, batch.images)
+    log(f"  window-attention calls of a training forward over T·B = {TRAIN_T} frames: {sorted(calls)}")
+    if calls != want:
+        raise AssertionError(f"the ViT blocks call window attention at {calls}, not {want}")
+    dev, bf, f32 = "cuda", torch.bfloat16, torch.float32
+
+    def rn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    qkv = rn(TRAIN_T, hp, hp, 3 * nh * HD_VIT)
+    name = f"window_attention hd{HD_VIT} B{TRAIN_T} {hp}^2 ws{ws} nh{nh} real_h {real}"
+    compare(f"{name} (ViT training)", window_attention(qkv, ws, nh, pool, real)[:, :real, :real],
+            window_attention_plain(qkv, ws, nh, pool, real)[:, :real, :real], attention=True)
+    hold_grad(name, window_attention, window_attention_plain, (qkv, ws, nh, pool, real), (0,), g)
+    n, d, f = TRAIN_T * 1024, 384, 1536
+    ln = (rn(n, d), 1.0 + rn(d, scale=0.1, dtype=f32), rn(d, scale=0.1, dtype=f32), 1e-6)
+    compare(f"layer_norm ({n},{d}) (ViT training)", layer_norm(*ln), layer_norm_plain(*ln))
+    hold_grad(f"layer_norm ({n},{d})", layer_norm, layer_norm_plain, ln, (0, 1, 2), g)
+    mlp = (rn(n, d), 1.0 + rn(d, scale=0.1, dtype=f32), rn(d, scale=0.1, dtype=f32), rn(f, d, scale=d**-0.5),
+           rn(f, scale=0.1, dtype=f32), rn(d, f, scale=f**-0.5), rn(d, scale=0.1, dtype=f32), 1e-6)
+    compare(f"ln_mlp_residual ({n},{d},{f}) (ViT training)", ln_mlp_residual(*mlp), ln_mlp_residual_plain(*mlp))
+    hold_grad(f"ln_mlp_residual ({n},{d},{f})", ln_mlp_residual, ln_mlp_residual_plain, mlp, tuple(range(7)), g)
+
+
+def check_freeze(host_sd) -> None:
+    """EfficientTAMTrain's freeze_image_encoder: FREEZE_STEPS steps with
+    ``freeze_patterns=("*image_encoder*",)``; every image-encoder parameter
+    bit-identical after them, every other parameter group moved."""
+    import dataclasses
+
+    import torch
+
+    from us_video_medsam2_tpu_torch.training.train_step import TrainConfig, create_train_state, make_train_step
+
+    cfg = train_config()
+    frozen = TrainConfig(sim=cfg.sim, loss=cfg.loss,
+                         optim=dataclasses.replace(cfg.optim, freeze_patterns=("*image_encoder*",)))
+    state = create_train_state(build_train_model(host_sd, name=VIT), frozen)
+    batch = make_train_batch(TRAIN_T, state.model.cfg.image_size, "cuda")
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    step, gen = make_train_step(frozen), torch.Generator().manual_seed(SEED)
+    for _ in range(FREEZE_STEPS):
+        m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    encoder = {n for n in before if n.startswith("image_encoder.")}
+    others = set(before) - encoder
+    moved = {n for n, p in state.model.named_parameters() if not torch.equal(p, before[n])}
+    still = [g for g, pre in PARAM_GROUPS.items() if any(n.startswith(pre) for n in others)
+             and not any(n.startswith(pre) for n in moved)]
+    log(f"  freeze_patterns ('*image_encoder*',), {FREEZE_STEPS} steps: {len(encoder)} image-encoder parameters, "
+        f"{len(moved & encoder)} moved; {len(moved)} of {len(others)} others moved; core_loss "
+        f"{float(m['core_loss']):.6f}")
+    if moved & encoder or not encoder or still or len(moved) < 0.9 * len(others):
+        raise AssertionError(f"freeze: encoder parameters moved {sorted(moved & encoder)[:4]}; groups that did "
+                             f"not move {still}; {len(moved)} of {len(others)} others moved")
+    del state
+
+
+def run_vit_training(card, work, corpus) -> dict:
+    """Phase 11: the EfficientTAM training half at ``efficientmedsam_s_512``
+    full width, bf16 with f32 master weights, seeded weights (the
+    object-score head's output bias at +10, as phase 6): (a) the kernels at
+    the ViT training shapes; (b) TRAIN_STEPS timed steps after a warm-up
+    (T 4, B 1, O 3, ``TrainSimConfig()``, consistency loss 0.5), every
+    step's launches exact, then one traced step; (c) the fixed-plan step on
+    the card (traced) against the host (counted): phase 7's gate; (d) the
+    image encoder frozen; (e) ``apps/train.py --cfg efficientmedsam_s_512``
+    for one epoch on phase 10's ``corpus`` from a reference-name ``.pt``,
+    its ``checkpoint.npz`` served against the trainer's final weights, bit
+    for bit, with phase 6's launches. Returns the fixed-plan step's device
+    ms and FLOPs."""
+    import numpy as np
+    import torch
+
+    from us_video_medsam2_tpu_torch.apps import train
+    from us_video_medsam2_tpu_torch.inference.video_predictor import build_efficienttam_video_predictor
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(SEED)
+    model = build_train_model(name=VIT)
+    host_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    size = model.cfg.image_size
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    check_vit_training_kernels(g, model.to("cuda").set_compute_dtype(torch.bfloat16, cast_weights=False),
+                               make_train_batch(TRAIN_T, size, "cuda"))
+    model.to("cpu")
+
+    reset_peak_memory()
+    _, walls, peak, _, traced = timed_train_steps(model, "EfficientMedSAM-S", per_step=PER_TRAIN_STEP_VIT,
+                                                  trace_dir=os.path.join(work, "trace_step"))
+    reserved = torch.cuda.max_memory_reserved()
+    log(f"  EfficientMedSAM-S step: median {1e3 * statistics.median(walls):.2f} ms/step over {TRAIN_STEPS} steps, "
+        f"device {traced['device_ms']:.2f} ms (the traced step), peak allocated {peak / 2**30:.3f} GiB, peak "
+        f"reserved {reserved / 2**30:.3f} GiB; launches a step {PER_TRAIN_STEP_VIT} + "
+        f"{PER_TRACKED_TRAIN_FRAME} a tracked frame; {card}")
+    del model
+    torch.cuda.empty_cache()
+
+    fixed = fixed_plan_steps(host_sd, size, (("card", "cuda", torch.bfloat16), ("host", "cpu", torch.float32)),
+                             what="EfficientMedSAM-S ", name=VIT, per_step=PER_TRAIN_STEP_VIT,
+                             measure_dir=os.path.join(work, "trace_fixed"))
+    torch.cuda.empty_cache()
+    check_freeze(host_sd)
+    torch.cuda.empty_cache()
+
+    # (e) the training CLI at the ViT preset, its checkpoint served
+    from us_video_medsam2_tpu_torch.core.build import build_sam2
+
+    seeded = build_sam2(VIT, state_dict=host_sd)
+    ckpt = os.path.join(work, f"seed{SEED}_{VIT}_reference.pt")
+    torch.save({"model": to_reference_state_dict(seeded.state_dict(), seeded.cfg)}, ckpt)
+    out = os.path.join(work, "run")
+    args = ["--data_dir", corpus, "--out_dir", out, "--epochs", "1", "--cfg", VIT, "--init_ckpt", ckpt,
+            "--resolution", str(size), "--device", "cuda", *TE_ARGS]
+    log(f"  train: {' '.join(args)}")
+    t0 = time.perf_counter()
+    with StepRecorder() as rec:
+        tr = train.main(args)
+    rec.check("apps/train.py --cfg " + VIT, per_step=PER_TRAIN_STEP_VIT)
+    log(f"  one epoch of {len(tr.step_times)} steps in {time.perf_counter() - t0:.1f} s: median "
+        f"{statistics.median(1e3 * (d + s) for d, s in tr.step_times):.2f} ms a step")
+    final_sd = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
+    del tr
+    torch.cuda.empty_cache()
+    video, click, _ = make_video(FRAMES, size, SEED)
+    runs = {}
+    for how, kw in (("checkpoint.npz", {"ckpt_path": os.path.join(out, "checkpoint.npz")}),
+                    ("in-memory state dict", {"state_dict": final_sd})):
+        pred = build_efficienttam_video_predictor(VIT, fill_hole_area=8, **kw)
+        (masks, _, _), _ = counted_run(pred, PER_ENCODED_FRAME_VIT, f"served from the {how}",
+                                       lambda: run_main_path(pred, video, click))
+        runs[how] = masks
+        del pred
+    a, b = runs.values()
+    same = [f for f in a if np.array_equal(a[f], b[f])]
+    log(f"  {len(same)} of {len(a)} frames bit-identical between the two predictors")
+    if len(same) != len(a) or list(a) != list(b):
+        raise AssertionError("the ViT checkpoint served disagrees with the trainer's final weights")
+    os.remove(ckpt)
+    torch.cuda.empty_cache()
+    log(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return fixed
+
+
+# ----------------------------------------------------------------- phase 12
+def load_tool(name):
+    """``tools/<name>.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def mfu(what, flops, device_ms, peak) -> float:
+    share = flops / (device_ms / 1e3) / peak
+    log(f"  MFU {what}: {flops / 1e9:.3f} GFLOP / {device_ms:.3f} device ms / {peak / 1e12:.0f} TFLOP/s = "
+        f"{share:.4f}")
+    if not 0.0 < share <= 1.0:
+        raise AssertionError(f"{what}: MFU {share} outside (0, 1]")
+    return share
+
+
+def run_measurement(card, work, train_measures) -> None:
+    """Phase 12: the measurement layer. (a) The 16-frame propagations of
+    ``sam2.1_hiera_t512`` and ``efficientmedsam_s_512`` (seeded weights as
+    phases 4 and 6, the frame body's graph captured by a warm-up run)
+    traced through ``utils/profiling.trace`` and parsed by
+    ``utils/traceparse`` (``traced_call``: every kernel's trace events equal
+    its launch counter, the busy time key_averages()'); device ms per
+    tracked frame, the top kernels and modules. (b) FLOPs from
+    ``utils/flops`` on the host's plain versions: a propagation is linear
+    in its tracked frames (``tests/test_torch_flops.py``), so a 16-frame
+    run's FLOPs are those of 2 frames plus 14 times the third frame's; the
+    training steps' are the fixed-plan host steps of phases 7 and 11. The
+    MFU of each against ``traceparse.peak_bf16_flops`` of this card (an
+    unknown card raises) must lie in (0, 1]. (c) The two tools at small
+    counts."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.core.build import build_sam2
+    from us_video_medsam2_tpu_torch.inference.video_predictor import (
+        build_efficienttam_video_predictor,
+        build_sam2_video_predictor,
+    )
+    from us_video_medsam2_tpu_torch.utils.flops import fn_flops
+    from us_video_medsam2_tpu_torch.utils.traceparse import peak_bf16_flops
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    peak = peak_bf16_flops(kind)
+    if peak is None:
+        raise AssertionError(f"no dense bf16 peak is known for {kind!r}: no MFU can be given")
+    log(f"  dense bf16 peak of {kind}: {peak / 1e12:.0f} TFLOP/s ({card})")
+    for name, builder, per_encoded, margin in (
+            ("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME, None),
+            (VIT, build_efficienttam_video_predictor, PER_ENCODED_FRAME_VIT, VIT_IOU_MARGIN)):
+        model = build_sam2(name, seed=SEED)
+        with torch.no_grad():
+            model.sam_mask_decoder.obj_score_head.layers_2.bias.fill_(10.0)
+            if margin is not None:
+                model.sam_mask_decoder.iou_head.layers_2.bias[margin[0]] += margin[1]
+        host_sd = {k: v.clone() for k, v in model.state_dict().items()}
+        pred = builder(name, state_dict=host_sd, fill_hole_area=8)
+        video, click, _ = make_video(FRAMES, model.cfg.image_size, SEED)
+        run_main_path(pred, video, click)  # captures the frame body's graph
+        _, counts, parsed = traced_call(lambda: run_main_path(pred, video, click), f"{name} propagation",
+                                        os.path.join(work, f"trace_{name}"), pred.model)
+        check_counts(f"{name}, the traced run", counts, expected_launches(per_encoded, FRAMES, FRAMES - 1))
+        log_tallies(parsed, "tracked frame", FRAMES - 1)
+        device_ms = sum(parsed[0].values()) / 1e3
+        del pred
+        torch.cuda.empty_cache()
+        host = builder(name, state_dict=host_sd, fill_hole_area=8, device="cpu", dtype=torch.float32)
+        t0 = time.perf_counter()
+        f2, f3 = (fn_flops(lambda k=k: run_main_path(host, video, click, stop_after=k)) for k in (2, 3))
+        total = f2 + (FRAMES - 2) * (f3 - f2)
+        log(f"  {name}: {(f3 - f2) / 1e9:.3f} GFLOP per tracked frame, {total / 1e9:.3f} GFLOP a {FRAMES}-frame run "
+            f"(counted on the host's plain versions in {time.perf_counter() - t0:.1f} s)")
+        mfu(f"{name} propagation, {FRAMES} frames", total, device_ms, peak)
+        del host
+    for fam, m in train_measures.items():
+        log(f"  {fam} fixed-plan training step (T {HOST_T}): {m['flops'] / 1e9:.3f} GFLOP (host count), "
+            f"{m['device_ms']:.3f} device ms (traced)")
+        mfu(f"{fam} training step", m["flops"], m["device_ms"], peak)
+
+    t0 = time.perf_counter()
+    prop = load_tool("torch_profile_propagation")
+    out = os.path.join(work, "tool_profile")
+    prop.main(["--frames", "4", "--out", out, "--cfg", VIT, "--top", "10"])
+    with open(os.path.join(out, "summary.json")) as f:
+        summary = json.load(f)
+    log(f"  tools/torch_profile_propagation.py --frames 4 --cfg {VIT}: {summary['total_ms']:.3f} device ms, "
+        f"{summary['ms_per_tracked_frame']:.4f} per tracked frame ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    bench = load_tool("torch_bench_train_step")
+    rec = bench.main(["--steps", "1", "--frames", "2", "--cfg", "sam2.1_hiera_t512", "--fusion", "none"])
+    log(f"  tools/torch_bench_train_step.py --steps 1 --frames 2: {json.dumps(rec)} ({time.perf_counter() - t0:.1f} s)")
+    if not (rec["device_ms_per_step"] and rec["flops_per_step_gflop"] and 0 < rec["mfu_pct"] <= 100):
+        raise AssertionError(f"the train-step tool's record: {rec}")
+    log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -4140,7 +4627,7 @@ def main(argv=None) -> int:
     # 1. the card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/11] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[1/13] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     wait_for_memory()
 
     # 2. the build
@@ -4149,7 +4636,7 @@ def main(argv=None) -> int:
     lib = _lib.build(log=msgs.append)
     _lib.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/11] build: {lib.name} in {build_s:.2f} s (set-up)")
+    log(f"[2/13] build: {lib.name} in {build_s:.2f} s (set-up)")
     if msgs:
         (lib.parent / "nvcc.log").write_text("\n".join(msgs))
         regs = ptxas_report(msgs)
@@ -4162,7 +4649,7 @@ def main(argv=None) -> int:
         log("  (library built before this run: no compiler report)")
 
     # 3. each kernel against its plain version
-    log("[3/11] kernels vs plain versions at the main-path shapes (bf16)")
+    log("[3/13] kernels vs plain versions at the main-path shapes (bf16)")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(g)
     check_kernel_grads(g)
@@ -4171,15 +4658,15 @@ def main(argv=None) -> int:
     check_window_attention_v1(g, rows)
 
     # 4-5. the main path: sam2.1_hiera_t512, switches off, then on
-    log("[4/11] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
+    log("[4/13] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
     t512 = run_propagation("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME,
-                           PER_ENCODED_FRAME_FUSED, "main_path", "[5/11]", card, args.profile,
+                           PER_ENCODED_FRAME_FUSED, "main_path", "[5/13]", card, args.profile,
                            precompute=PRECOMPUTE_BATCH)
 
     # 6. EfficientMedSAM-S: the same, through the EfficientTAM entry point
-    log("[6/11] EfficientMedSAM-S: efficientmedsam_s_512, bf16, seeded weights and video")
+    log("[6/13] EfficientMedSAM-S: efficientmedsam_s_512, bf16, seeded weights and video")
     eff = run_propagation("efficientmedsam_s_512", build_efficienttam_video_predictor, PER_ENCODED_FRAME_VIT,
-                          PER_ENCODED_FRAME_VIT_FUSED, "efficienttam_s", "[6/11]", card, args.profile,
+                          PER_ENCODED_FRAME_VIT_FUSED, "efficienttam_s", "[6/13]", card, args.profile,
                           VIT_IOU_MARGIN)
     launches = {k: t512["default"][k] + eff["default"][k] for k in t512["default"]}
     for k in ("cxblock", "qkv_window_attention"):  # the kernels of the fused configuration
@@ -4190,17 +4677,18 @@ def main(argv=None) -> int:
          for cfg in ("default", "fused")}))
 
     # 7. the training path
-    log(f"[7/11] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
+    log(f"[7/13] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
         f"T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}, seeded weights and batch; without temporal fusion, then with "
         f"{GFTE_FUSION[0]}")
     t0 = time.perf_counter()
-    train_launches = run_training(args.profile, os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                                                              "chip_smoke"))
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    train_launches, t512_fixed = run_training(args.profile, work,
+                                              os.path.join(work, "measurement", "trace_t512_fixed"))
     log(f"  launches over the {TRAIN_STEPS} timed steps without fusion: {train_launches}")
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # 8. the predictor's long-video and editing paths
-    log("[8/11] long video and editing: sam2.1_hiera_t512, bf16, seeded weights; checkpoint, offload and "
+    log("[8/13] long video and editing: sam2.1_hiera_t512, bf16, seeded weights; checkpoint, offload and "
         "streaming, buckets, editing")
     t0 = time.perf_counter()
     run_long_video_and_editing("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME, card,
@@ -4209,18 +4697,30 @@ def main(argv=None) -> int:
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
     # 9. the entry points: the apps, batched serving, the image path
-    log("[9/11] entry points: sam2.1_hiera_t512, bf16, seeded weights; the apps' mains, batched serving, "
+    log("[9/13] entry points: sam2.1_hiera_t512, bf16, seeded weights; the apps' mains, batched serving, "
         "the image predictor and the automatic mask generator")
     run_entry_points(card, os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
                                         "entry_points"))
 
     # 10. the training entry point: apps/train.py's main, resumed, served, GFTE, one NCCL rank, the native reader
-    log("[10/11] training entry point: apps/train.py at sam2.1_hiera_t512, bf16 with f32 master weights, from a "
+    log("[10/13] training entry point: apps/train.py at sam2.1_hiera_t512, bf16 with f32 master weights, from a "
         "reference-name .pt of the seeded weights, on a seeded NPZ corpus")
-    run_training_entry(card, os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
-                                          "training_entry"))
+    run_training_entry(card, os.path.join(work, "training_entry"))
 
-    # 11. the kernels line (launches of the dropout kernels from the training
+    # 11. the EfficientTAM training half
+    log(f"[11/13] EfficientTAM training: {VIT} train step, bf16 with f32 master weights, T {TRAIN_T}, B 1, "
+        f"O {TRAIN_OBJECTS}, seeded weights and batch; the hd-64 kernels at the training shapes, the host gate, a "
+        f"frozen encoder, apps/train.py --cfg {VIT} on phase 10's corpus")
+    vit_fixed = run_vit_training(card, os.path.join(work, "vit_training"),
+                                 os.path.join(work, "training_entry", "corpus"))
+
+    # 12. the measurement layer: traces, FLOPs, MFU, the two tools
+    log("[12/13] measurement layer: utils/profiling traces parsed by utils/traceparse, utils/flops, MFU, "
+        "tools/torch_profile_propagation.py and tools/torch_bench_train_step.py")
+    run_measurement(card, os.path.join(work, "measurement"),
+                    {"sam2.1_hiera_t512": t512_fixed, VIT: vit_fixed})
+
+    # 13. the kernels line (launches of the dropout kernels from the training
     # steps, of cxblock and qkv_window_attention from the fused propagation
     # runs of both models, of the others from their default runs, where the
     # unwired window_attention_v1 launches none), the card line, the device line
@@ -4234,7 +4734,7 @@ def main(argv=None) -> int:
             "library_ms": r.library_ms,
         })
     detail = {r.name: r.shapes for r in rows.values()}
-    log("[11/11] per-shape detail " + json.dumps(detail))
+    log("[13/13] per-shape detail " + json.dumps(detail))
     peak = max(PEAK_RESERVED[0], torch.cuda.max_memory_reserved())
     log(f"  the run's peak reserved device memory {peak / 2**30:.3f} GiB (max_memory_reserved; "
         f"{MEMORY_NEED_GIB} GiB asked free at the start)")

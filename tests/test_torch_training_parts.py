@@ -27,6 +27,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from tests.test_train_step import TINY
+from tests.test_train_step_vit import TINY_VIT
 from tests.torch_port_helpers import n, t
 from us_video_medsam2_tpu.kernels import flash_attention as jfa
 from us_video_medsam2_tpu.kernels import fused_ln, fused_mlp
@@ -211,15 +212,19 @@ def test_box_noise_stays_within_its_bounds():
 
 
 # ------------------------------------------------------------------- optimizer
-@functools.lru_cache(maxsize=1)
-def _tiny_params():
-    return jax.jit(JaxSAM2Model(TINY).init)(jax.random.PRNGKey(0), jnp.zeros((1, TINY.image_size,
-                                                                             TINY.image_size, 3)))
+@functools.lru_cache(maxsize=None)
+def _tiny_params(config="tiny"):
+    cfg = {"tiny": TINY, "tiny_vit": TINY_VIT}[config]
+    return jax.jit(JaxSAM2Model(cfg).init)(jax.random.PRNGKey(0), jnp.zeros((1, cfg.image_size,
+                                                                            cfg.image_size, 3)))
 
 
-@pytest.mark.parametrize("accum_steps", [1, 2])
-def test_optimizer_updates_match_jax(accum_steps):
-    params = _tiny_params()
+@pytest.mark.parametrize("accum_steps,config", [(1, "tiny"), (2, "tiny"), (1, "tiny_vit")],
+                         ids=["1", "2", "tiny_vit-1"])
+def test_optimizer_updates_match_jax(accum_steps, config):
+    """TINY (Hiera) with and without accumulation, and TINY_VIT: layer decay
+    on the ViTDet trunk's names (blocks_i, patch_embed, pos_embed)."""
+    params = _tiny_params(config)
     cfg = dict(total_steps=10, freeze_patterns=("*sam_prompt_encoder*",), accum_steps=accum_steps)
     tx = jopt.build_optimizer(params, jopt.OptimConfig(**cfg))
     state = tx.init(params)
@@ -238,7 +243,9 @@ def test_optimizer_updates_match_jax(accum_steps):
             assert d <= 1e-6, f"step {step} {name}: rel {d:.3e}"
     metas = opt.meta
     assert metas["sam_prompt_encoder.point_embed"].mult == 0.0
-    assert metas["image_encoder.trunk.blocks_0.attn.qkv.weight"].mult == pytest.approx(0.9**4)
+    blocks = 4 if config == "tiny" else TINY_VIT.vitdet.depth  # blocks_0 decays by 0.9^blocks
+    assert metas["image_encoder.trunk.blocks_0.attn.qkv.weight"].mult == pytest.approx(0.9**blocks)
+    assert metas["image_encoder.trunk.patch_embed.weight"].mult == pytest.approx(0.9**(blocks + 1))
     assert metas["image_encoder.trunk.pos_embed"].mult == 1.0
     assert not metas["image_encoder.trunk.blocks_0.norm1.weight"].wd_on
     assert metas["memory_attention.layers_0.linear1.weight"].wd_on

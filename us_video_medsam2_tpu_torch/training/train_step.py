@@ -93,7 +93,13 @@ def make_train_step(cfg: TrainConfig):
         for p in params.values():
             p.grad = None
         losses, plan = _losses(model, cfg, batch, gen, is_training=True)
-        losses[CORE_LOSS_KEY].backward()
+        # a plan whose every frame is a mask-prompted conditioning frame gives
+        # the masks themselves as outputs: no parameter reaches the loss, and
+        # the gradients are 0, as JAX's value_and_grad gives them. Any other
+        # loss without a graph is a fault, and its backward raises.
+        no_tracked_frame = plan.mode == 2 and all(plan.is_init)
+        if not (no_tracked_frame and not losses[CORE_LOSS_KEY].requires_grad):
+            losses[CORE_LOSS_KEY].backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in params.items()}
         if cfg.optim.grad_dtype == "bfloat16":  # the reference's bf16 gradient hook, before the reduction
             grads = {n: g.to(torch.bfloat16).to(g.dtype) for n, g in grads.items()}
