@@ -315,7 +315,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    the MFU of each against the card's dense bf16 peak (an unknown card
    raises), which must lie in (0, 1]; ``tools/torch_profile_propagation.py``
    (4 frames) and ``tools/torch_bench_train_step.py`` (one step of T 2) once;
-13. the run's peak reserved device memory, each path's launch counts, the kernels line (launches summed over the
+13. the annotation app, sharded serving and the serving twins,
+   ``sam2.1_hiera_t512`` at full width in bf16 with phase 9's seeded
+   weights: (a) the annotation server (``apps/http_api.create_server``,
+   port 0, a daemon thread) through real HTTP round trips: a seeded
+   ``HTTP_FRAMES``-frame 480x640 video written here as an AVI of raw 'RGBA'
+   frames (``write_rgba_avi``; the port decodes it without cv2) uploaded,
+   a click (object 1), a box (object 2), track, ``masks.zip``,
+   ``tracked.mp4`` (where cv2 imports; else its 501), DELETE and a 404
+   after; the session's masks and the zip's PNGs bit for bit those of the
+   same predictor driven directly on the same frames (that run first: it
+   captures, the session does not), each request's launches exactly phase
+   4's (9 / 12 / 12 an encoded frame, 8 flash a tracked frame), the
+   upload-to-session, click and track ms printed; (b) two sessions of the
+   same length tracked at once from two threads on one predictor and one
+   graph key, each bit for bit its run alone; once more with the
+   predictor's lock a no-op, whether the bits then differ printed, not
+   held; (c) phase 9's 4 x 16 videos through ``batched_propagate(...,
+   mesh=create_mesh())`` on a one-rank NCCL mesh (its own
+   ``MASTER_PORT``; the group destroyed after) with a new predictor of the
+   same weights: one capture, exact launches, no host sync in the window,
+   phase 9's bits, ms a call and frames/s beside phase 9's; (d)
+   ``tools/torch_bench_serve.py --videos 4 --frames 16 --runs 2 --json``
+   and ``tools/torch_bench_longvideo.py --lengths 37,64 --chunk 64`` as
+   subprocesses: their JSON lines parse, and 37 and 64 frames share one
+   capture; the phase's seconds;
+14. the run's peak reserved device memory, each path's launch counts, the kernels line (launches summed over the
    runs of both models), the card line, and the device line last.
 
 Exits non-zero without a result when no CUDA device is present or when the
@@ -452,6 +477,9 @@ RECIST_SIDES = (512, 400)  # one case at model resolution, one through the torch
 RECIST_HOST_SLICES = 16  # the case run again on the host
 VOLUME_SLICES = 32  # infer_3d_ct's and infer_luna25's volume
 SERVE_N, SERVE_T = 4, 16  # tools/bench_serve.py's default
+HTTP_FRAMES = 16  # phase 13: the uploaded video's frames
+HTTP_HW = (480, 640)  # and their height, width
+TWIN_TIMEOUT_S = 300
 SERVE_HOST = (2, 9)  # videos, frames of the card-vs-host serving run: more frames than memory slots
 BATCH_POINTS = 64  # predict_batch_points: one AMG batch
 AMG_POINTS, AMG_HOST_POINTS = 32, 8  # points a side: 16 batches of 64; one batch
@@ -2147,6 +2175,70 @@ def make_video(frames: int, size: int, seed: int, width: int | None = None):
     return video, (float(c0[0, 0]), float(c0[0, 1])), masks
 
 
+def write_rgba_avi(path, frames, fps: int = 10) -> None:
+    """An AVI of raw 32-bit 'RGBA' frames from uint8 RGB [T, H, W, 3], in
+    numpy (this script needs no cv2): the layout cv2 writes for the
+    'RGBA' fourcc (one ``00dc`` chunk a frame, rows top first, bytes R, G,
+    B, A with A 255, an ``idx1`` index), which the port's
+    ``utils/video_io.read_rgba_avi`` and cv2 both read back bit for bit
+    (tests/test_torch_video_io.py)."""
+    import struct
+
+    import numpy as np
+
+    frames = np.asarray(frames, np.uint8)
+    t, h, w = frames.shape[:3]
+    rgba = np.concatenate([frames, np.full((t, h, w, 1), 255, np.uint8)], axis=-1)
+    size = w * h * 4
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return tag + struct.pack("<I", len(data)) + data + (b"\0" if len(data) & 1 else b"")
+
+    def lst(typ: bytes, data: bytes) -> bytes:
+        return b"LIST" + struct.pack("<I", len(data) + 4) + typ + data
+
+    avih = struct.pack("<14I", 1_000_000 // fps, size * fps, 0, 0x10, t, 0, 1, size, w, h, 0, 0, 0, 0)
+    strh = b"vids" + b"RGBA" + struct.pack("<IHHIIIIIIIIhhhh", 0, 0, 0, 0, 1, fps, 0, t, size, 0xFFFFFFFF, 0,
+                                           0, 0, w, h)
+    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 32, b"RGBA", size, 0, 0, 0, 0)
+    hdrl = lst(b"hdrl", chunk(b"avih", avih) + lst(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
+    movi = lst(b"movi", b"".join(chunk(b"00dc", f.tobytes()) for f in rgba))
+    # idx1 offsets count from the movi list's type field: the first chunk sits at 4
+    idx1 = chunk(b"idx1", b"".join(struct.pack("<4sIII", b"00dc", 0x10, 4 + i * (8 + size), size)
+                                   for i in range(t)))
+    body = b"AVI " + hdrl + movi + idx1
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def read_png_gray(data: bytes):
+    """uint8 [H, W] of an 8-bit greyscale PNG whose rows all use filter 0
+    (what ``utils/video_io.write_png_gray`` writes); anything else raises."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    off, idat, hdr = 8, b"", None
+    while off < len(data):
+        n, tag = struct.unpack(">I4s", data[off: off + 8])
+        body = data[off + 8: off + 8 + n]
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        off += 12 + n
+    w, h, depth, color = hdr[:4]
+    if (depth, color) != (8, 0):
+        raise ValueError(f"PNG of depth {depth}, colour type {color}: not 8-bit greyscale")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    if rows[:, 0].any():
+        raise ValueError("a PNG row with a filter other than 0")
+    return rows[:, 1:].copy()
+
+
 # The port's names -> the reference's (sam2/modeling), the inverse of the
 # port's importer (core/import_torch.py): (pattern, replacement) in order.
 REFERENCE_NAMES = [
@@ -3776,7 +3868,8 @@ def check_serving(name, host_sd, card, device="cuda"):
                 {(i, f): host_low[i, f] for i in range(n) for f in range(k)},
                 f"batched serving N {n}, its first {k} frames, card vs host", LOGIT_REL_L2_TOL, MASK_IOU_TOL)
     hold_served_as_interactive(pred, host, raw[:n, :t], [c[0] for c in clicks[:n]], card_low, host_low)
-    return {"ms_per_call": 1e3 * secs, "ms_per_call_n1": 1e3 * secs1}
+    return {"ms_per_call": 1e3 * secs, "ms_per_call_n1": 1e3 * secs1, "raw": raw, "coords": coords,
+            "labels": labels, "lows": lows}
 
 
 def hold_served_as_interactive(card, host, raw, clicks, card_low, host_low) -> None:
@@ -3975,7 +4068,8 @@ def run_entry_points(card, work, name="sam2.1_hiera_t512", device="cuda"):
     the seeded weights of phase 4 (the object-score head's output bias at
     +10): the apps, batched serving, the image path. The host's runs are the
     plain versions in f32; the card's own gates (launches, captures, the
-    sync-free window) are held on the card only."""
+    sync-free window) are held on the card only. Returns the weights and
+    serving's result (``check_serving``'s), which phase 13 serves again."""
     import torch
 
     from us_video_medsam2_tpu_torch.core.build import build_sam2
@@ -3990,13 +4084,14 @@ def run_entry_points(card, work, name="sam2.1_hiera_t512", device="cuda"):
     log(f"  (a) took {time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
     log(f"  (b) batched serving: {SERVE_N} videos x {SERVE_T} frames, the video axis as the batch axis")
-    check_serving(name, host_sd, card, device)
+    served = check_serving(name, host_sd, card, device)
     log(f"  (b) took {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     log(f"  (c) the image path: image predictor and automatic mask generator on a {APP_HW[0]}x{APP_HW[1]} image")
     check_image_path(name, host_sd, card, device)
     log(f"  (c) took {time.perf_counter() - t1:.1f} s")
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+    return {"host_sd": host_sd, "serving": served}
 
 
 # ----------------------------------------------------------------- phase 10
@@ -4596,6 +4691,411 @@ def run_measurement(card, work, train_measures) -> None:
     log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------- phase 13
+def http_call(base, method, path, body=None, headers=None):
+    """(status, content type, body) of one HTTP round trip, an error status included."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body, method=method, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.headers.get_content_type(), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get_content_type(), e.read()
+
+
+def http_json(base, method, path, payload=None, body=None, headers=None, want=200) -> dict:
+    """The JSON body of a round trip that must answer ``want``."""
+    data = json.dumps(payload).encode() if payload is not None else body
+    code, ctype, out = http_call(base, method, path, data, headers)
+    if code != want or ctype != "application/json":
+        raise AssertionError(f"{method} {path}: {code} {ctype} {out[:300]!r} ({want} expected)")
+    return json.loads(out)
+
+
+def session_video(path, seed):
+    """A seeded ``HTTP_FRAMES``-frame ``HTTP_HW`` video of moving blobs written
+    as an AVI of raw 'RGBA' frames; returns its click (blob 0) and box (blob
+    1's extent) on frame 0, in the video's pixels."""
+    h, w = HTTP_HW
+    video, click, blobs = make_video(HTTP_FRAMES, h, seed, width=w)
+    write_rgba_avi(path, video)
+    ys, xs = blobs[0, 1].nonzero()
+    return list(click), [float(xs.min()), float(ys.min()), float(xs.max()), float(ys.max())]
+
+
+def drive_directly(pred, path, click, box=None) -> dict:
+    """The predictor driven as a session drives it, without the app: the
+    frames of ``load_video_frames``, init_state with the app's object slots,
+    a click (object 1) and a box (object 2) on frame 0, propagation;
+    {frame: (obj_ids, masks [O, H, W] bool)}."""
+    import numpy as np
+
+    from us_video_medsam2_tpu_torch.apps.app import MAX_OBJECTS
+    from us_video_medsam2_tpu_torch.utils.video_io import load_video_frames
+
+    frames, vh, vw = load_video_frames(path, pred.cfg.image_size)
+    state = pred.init_state(frames, vh, vw, max_objects=MAX_OBJECTS)
+    pred.add_new_points_or_box(state, 0, 1, points=np.array([click], np.float32), labels=np.array([1], np.int32))
+    if box is not None:
+        pred.add_new_points_or_box(state, 0, 2, box=np.asarray(box, np.float32))
+    return {f: (ids, logits[:, 0] > 0) for f, ids, logits in pred.propagate_in_video(state)}
+
+
+def same_session_masks(got: dict, want: dict, what: str) -> int:
+    """Every frame's object ids and masks bit for bit; returns the frames compared."""
+    import numpy as np
+
+    if list(got) != list(want):
+        raise AssertionError(f"{what}: frames {list(got)} against {list(want)}")
+    bad = [f for f in want if got[f][0] != want[f][0] or not np.array_equal(got[f][1], want[f][1])]
+    if bad:
+        f = bad[0]
+        raise AssertionError(f"{what}: {len(bad)} frames differ, first {f}: ids {got[f][0]} / {want[f][0]}, "
+                             f"{int((got[f][1] != want[f][1]).sum())} pixels")
+    return len(want)
+
+
+def run_http_session(card, pred, work, per_encoded=PER_ENCODED_FRAME) -> dict:
+    """Phase 13 (a): the annotation server (``apps/http_api.create_server``,
+    port 0, a daemon thread) through real HTTP round trips: upload of a
+    seeded AVI of raw 'RGBA' frames, a click, a box, track, ``masks.zip``,
+    ``tracked.mp4`` (501 without cv2), DELETE and a 404 after. The session's
+    masks and the zip's PNGs against the same predictor driven directly on
+    the same frames, bit for bit; each request's launches exact (on the
+    card). The direct run goes first and captures the frame body's graph, so
+    the session's requests capture nothing."""
+    import threading
+
+    import numpy as np
+
+    from us_video_medsam2_tpu_torch.apps.app import MAX_OBJECTS
+    from us_video_medsam2_tpu_torch.apps.http_api import create_server
+
+    on_card = pred.device.type == "cuda"
+    path = os.path.join(work, "upload.avi")
+    click, box = session_video(path, SEED + 30)
+    n = HTTP_FRAMES
+    t0 = time.perf_counter()
+    want = drive_directly(pred, path, click, box)
+    log(f"  (a) direct run: {n} frames at {HTTP_HW[0]}x{HTTP_HW[1]}, {MAX_OBJECTS} object slots, objects 1 "
+        f"(click) and 2 (box); {pred.graphs.captures} capture(s), {time.perf_counter() - t0:.2f} s")
+    captures = pred.graphs.captures
+    os.makedirs(os.path.join(work, "http"), exist_ok=True)
+    server = create_server(pred, port=0, tmp_root=os.path.join(work, "http"))
+    host, port = server.server_address
+    base = f"http://{host}:{port}"
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+
+    def timed(what, fn, encoded, tracked):
+        t = time.perf_counter()
+        out, launches = read_counts(fn)
+        secs = time.perf_counter() - t
+        if on_card:
+            check_counts(f"(a) {what}", launches, expected_launches(per_encoded, encoded, tracked))
+        return out, secs, launches
+
+    try:
+        with open(path, "rb") as f:
+            body = f.read()
+        meta, up_s, _ = timed("upload", lambda: http_json(base, "POST", "/sessions", body=body,
+                                                          headers={"X-Filename": "upload.avi"}), 0, 0)
+        if (meta["num_frames"], meta["height"], meta["width"]) != (n, *HTTP_HW):
+            raise AssertionError(f"(a) upload: {meta}")
+        sid = meta["session_id"]
+        clicked, click_s, click_launches = timed("click", lambda: http_json(
+            base, "POST", f"/sessions/{sid}/click",
+            {"frame_idx": 0, "obj_id": 1, "x": click[0], "y": click[1], "positive": True}), 1, 0)
+        boxed, box_s, _ = timed("box", lambda: http_json(
+            base, "POST", f"/sessions/{sid}/box", {"frame_idx": 0, "obj_id": 2, "box": box}), 0, 0)
+        tracked, track_s, track_launches = timed("track", lambda: http_json(
+            base, "POST", f"/sessions/{sid}/track", body=b"{}"), n - 1, n - 1)
+        if clicked["obj_ids"] != [1] or boxed["obj_ids"] != [1, 2] or sorted(map(int, tracked["frames"])) != list(
+                range(n)):
+            raise AssertionError(f"(a) bodies: click {clicked}, box {boxed}, frames {sorted(tracked['frames'])}")
+        sess = server.RequestHandlerClass.sessions.get(sid)
+        got = dict(sess.masks_by_frame)
+        code, ctype, zbody = http_call(base, "GET", f"/sessions/{sid}/export/masks.zip")
+        if code != 200 or ctype != "application/zip":
+            raise AssertionError(f"(a) masks.zip: {code} {ctype}")
+        try:
+            import cv2  # noqa: F401
+            has_cv2 = True
+        except ImportError:
+            has_cv2 = False
+        code, ctype, mp4 = http_call(base, "GET", f"/sessions/{sid}/export/tracked.mp4")
+        if has_cv2 and (code, ctype) != (200, "video/mp4") or not has_cv2 and (
+                code != 501 or b"cv2" not in mp4):
+            raise AssertionError(f"(a) tracked.mp4 with{'' if has_cv2 else 'out'} cv2: {code} {mp4[:200]!r}")
+        log(f"  (a) tracked.mp4: {f'{len(mp4)} bytes' if has_cv2 else 'cv2 is absent here: 501, ' + repr(mp4[:120])}")
+        http_json(base, "DELETE", f"/sessions/{sid}")
+        http_json(base, "POST", f"/sessions/{sid}/track", body=b"{}", want=404)
+        healthz = http_json(base, "GET", "/healthz")
+    finally:
+        server.shutdown()
+        server.server_close()
+    if pred.graphs.captures != captures:
+        raise AssertionError(f"(a) the session captured {pred.graphs.captures - captures} graph(s)")
+    frames = same_session_masks(got, want, "(a) the HTTP session vs the predictor driven directly")
+    import io
+    import zipfile
+
+    with zipfile.ZipFile(io.BytesIO(zbody)) as z:
+        names = sorted(z.namelist())
+        if names != [f"{f:05d}.png" for f in range(n)]:
+            raise AssertionError(f"(a) masks.zip holds {names[:4]}...")
+        for f, (ids, masks) in want.items():
+            canvas = np.zeros(HTTP_HW, np.uint8)
+            for oi, oid in enumerate(ids):
+                canvas[masks[oi]] = oid
+            if not np.array_equal(read_png_gray(z.read(f"{f:05d}.png")), canvas):
+                raise AssertionError(f"(a) masks.zip frame {f} differs from the direct run's")
+    fg = [round(float(want[f][1][:2].mean()), 4) for f in (0, n // 2, n - 1)]
+    per_enc = {k: track_launches[k] / (n - 1) for k in per_encoded}
+    per_trk = {k: track_launches[k] / (n - 1) for k in PER_TRACKED_FRAME}
+    log(f"  (a) the HTTP session vs the predictor driven directly: {frames} of {n} frames bit-identical (ids and "
+        f"masks of {MAX_OBJECTS} slots), masks.zip's {n} PNGs equal to the direct masks' canvases; foreground "
+        f"of objects 1-2 at frames 0 / {n // 2} / {n - 1}: {fg}; healthz {healthz}")
+    log(f"  (a) upload-to-session {1e3 * up_s:.2f} ms ({len(body) / 1e6:.1f} MB, decoded and resized on the host), "
+        f"click {1e3 * click_s:.2f} ms, box {1e3 * box_s:.2f} ms, track {1e3 * track_s:.2f} ms = "
+        f"{1e3 * track_s / (n - 1):.2f} ms per tracked frame (HTTP round trips, host clock; {MAX_OBJECTS} "
+        f"object slots, masks at {HTTP_HW[0]}x{HTTP_HW[1]}) on {card}")
+    log(f"  (a) launches: click {({k: v for k, v in click_launches.items() if v})} (one encoded frame); track per "
+        f"encoded frame {per_enc}, per tracked frame {per_trk}")
+    return {"upload_ms": 1e3 * up_s, "click_ms": 1e3 * click_s, "track_ms_per_frame": 1e3 * track_s / (n - 1)}
+
+
+def track_together(sessions) -> list:
+    """Each session's ``track`` in a thread of its own, started together (a
+    barrier), the interpreter switching threads every 10 us; every
+    session's {frame: (ids, masks)}."""
+    import threading
+
+    start = threading.Barrier(len(sessions))
+    errors = []
+
+    def run(s):
+        try:
+            start.wait(timeout=60)
+            s.track()
+        except Exception as e:  # noqa: BLE001 -- raised below, in the phase's thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(s,)) for s in sessions]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        sys.setswitchinterval(interval)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"concurrent tracking: {errors or 'a thread did not end'}")
+    return [dict(s.masks_by_frame) for s in sessions]
+
+
+def run_concurrent_sessions(card, pred, work) -> None:
+    """Phase 13 (b): two sessions on one predictor and one graph key (the
+    same length and object slots as (a)), tracked alone, then at once from
+    two threads: each must give its own sequential bits, and on the card
+    both runs launch exactly two sessions' worth (2 x (n - 1) frames encoded
+    and tracked, no capture). Then once more with
+    the predictor's lock replaced by a no-op (each graph launch still
+    serialized, as the CUDA runtime asks of one executable graph): whether
+    the bits then differ is printed, not held."""
+    from us_video_medsam2_tpu_torch.apps.app import AnnotationSession
+    from us_video_medsam2_tpu_torch.inference.graphs import FrameGraph
+
+    sessions = []
+    for i in range(2):
+        path = os.path.join(work, f"session_{i}.avi")
+        click, _ = session_video(path, SEED + 31 + i)
+        s = AnnotationSession(pred, path)
+        s.click(0, 1, click[0], click[1], True)
+        sessions.append(s)
+    captures = pred.graphs.captures
+    on_card = pred.device.type == "cuda"
+    tracked = 2 * (HTTP_FRAMES - 1)
+    t0 = time.perf_counter()
+    alone, launches = read_counts(lambda: [dict(s.track()) for s in sessions])
+    t_alone = time.perf_counter() - t0
+    if on_card:
+        check_counts("(b) two sessions one after the other", launches,
+                     expected_launches(PER_ENCODED_FRAME, tracked, tracked))
+    t0 = time.perf_counter()
+    together, launches = read_counts(lambda: track_together(sessions))
+    t_together = time.perf_counter() - t0
+    if on_card:
+        check_counts("(b) two sessions at once", launches, expected_launches(PER_ENCODED_FRAME, tracked, tracked))
+    for i, (got, want) in enumerate(zip(together, alone)):
+        same_session_masks(got, want, f"(b) session {i} tracked beside the other vs alone")
+    if pred.graphs.captures != captures:
+        raise AssertionError(f"(b) {pred.graphs.captures - captures} capture(s) on a kept graph key")
+    log(f"  (b) two sessions at once ({HTTP_FRAMES} frames each, one graph key): each bit-identical to its run "
+        f"alone{', exact launches both ways' if on_card else ''}; {1e3 * t_alone:.1f} ms one after the other, "
+        f"{1e3 * t_together:.1f} ms from two threads (the predictor's lock serializes the windows); on {card}")
+
+    import threading
+
+    lock, replay, launch = pred.lock, FrameGraph.replay, threading.Lock()
+
+    def serialized_replay(self):
+        with launch:
+            replay(self)
+
+    pred.lock, FrameGraph.replay = contextlib.nullcontext(), serialized_replay
+    try:
+        unlocked = track_together(sessions)
+    finally:
+        pred.lock, FrameGraph.replay = lock, replay
+    differ = [sum(not (u[f][0] == a[f][0] and (u[f][1] == a[f][1]).all()) for f in a) for u, a in
+              zip(unlocked, alone)]
+    log(f"  (b) the same with the predictor's lock a no-op (not held): frames that differ from the sequential "
+        f"bits {differ} of {HTTP_FRAMES} each; {'the check would fail' if any(differ) else 'no difference this time'}")
+
+
+def run_sharded_serving(card, name, host_sd, served, device="cuda") -> None:
+    """Phase 13 (c): phase 9's batched serving again, as a one-rank mesh
+    (``parallel/mesh.create_mesh``: NCCL on the card, gloo on the CPU; this
+    process's own ``MASTER_PORT``) through ``batched_propagate(...,
+    mesh=...)`` on a new predictor of the same weights: one capture, exact
+    launches and no host sync in the window (on the card), phase 9's bits,
+    ms a call and frames/s beside phase 9's. The group is destroyed after."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from us_video_medsam2_tpu_torch.inference.serve import batched_propagate, serve_graphs
+    from us_video_medsam2_tpu_torch.inference.transforms import prep_frames
+    from us_video_medsam2_tpu_torch.inference.video_predictor import build_sam2_video_predictor
+    from us_video_medsam2_tpu_torch.parallel import distributed
+    from us_video_medsam2_tpu_torch.parallel.mesh import create_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    os.environ.update(env)
+    try:
+        mesh = create_mesh(device_type=device)
+        backend = torch.distributed.get_backend()
+        pred = build_sam2_video_predictor(name, state_dict=host_sd, fill_hole_area=8, device=device)
+        on_card = pred.device.type == "cuda"
+        raw, coords, labels = served["raw"], served["coords"], served["labels"]
+        n, t, size = raw.shape[0], raw.shape[1], raw.shape[2]
+        frames = prep_frames(torch.from_numpy(raw).to(pred.device).reshape(-1, size, size, 3), size)
+        frames = frames.reshape(n, t, size, size, 3)
+        graphs = serve_graphs(pred)
+
+        def call():
+            out = batched_propagate(pred, frames, coords, labels, mesh=mesh)
+            sync(pred.device)
+            return out
+
+        out, launches = read_counts(call)
+        made = graphs.captures
+        if on_card:
+            check_counts("(c) first sharded call", launches, expected_launches(PER_ENCODED_FRAME, t + made,
+                                                                              t - 1 + made))
+            if made != 1:
+                raise AssertionError(f"(c) the first sharded call made {made} captures")
+        runs = []
+        with serve_window_sync_errors() if on_card else contextlib.nullcontext():
+            for _ in range(REPEATS):
+                t0 = time.perf_counter()
+                out, launches = read_counts(call)
+                runs.append(time.perf_counter() - t0)
+                if on_card:
+                    check_counts("(c) timed sharded call", launches, expected_launches(PER_ENCODED_FRAME, t, t - 1))
+        if graphs.captures != made:
+            raise AssertionError("(c) a second sharded call captured again")
+    finally:
+        distributed.destroy()
+        for k in env:
+            os.environ.pop(k, None)
+    got = out.float().cpu().numpy()
+    same = bool(np.array_equal(got, served["lows"]))
+    secs = sorted(runs)[len(runs) // 2]
+    log(f"  (c) one-rank {backend} mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}: {n} videos x {t} frames, "
+        f"{made} capture{', exact launches, no sync in the window' if on_card else ''}; logits "
+        f"{'bit-identical to' if same else 'DIFFER from'} phase 9's unsharded call (max |d| "
+        f"{float(np.abs(got - served['lows']).max()):.3e})")
+    log(f"  (c) sharded {1e3 * secs:.2f} ms a call, {n * (t - 1) / secs:.1f} tracked frames/s; phase 9 unsharded "
+        f"{served['ms_per_call']:.2f} ms, {n * (t - 1) / (served['ms_per_call'] / 1e3):.1f} (host clock, median of "
+        f"{REPEATS}) on {card}")
+    if not same or (on_card and backend != "nccl"):
+        raise AssertionError(f"(c) the sharded call: same bits {same}, backend {backend}")
+
+
+def run_twins(card) -> None:
+    """Phase 13 (d): ``tools/torch_bench_serve.py`` and
+    ``tools/torch_bench_longvideo.py`` as subprocesses at a small size: their
+    JSON lines parse, 37 and 64 frames share one capture, and the launches
+    each twin counted in its own process are exact: the serving twin's over
+    its timed calls (one encode and one track a frame past the first, each
+    launch over the call's rows), the long-video twin's a video (one encode a
+    frame, one track a frame past the first, one of each a capture's
+    warm-up)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    n, t, runs = 4, 16, 2
+    lines = {}
+    for tool, args in (("torch_bench_serve", ["--videos", str(n), "--frames", str(t), "--runs", str(runs), "--json"]),
+                       ("torch_bench_longvideo", ["--lengths", "37,64", "--chunk", "64"])):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, os.path.join(root, "tools", f"{tool}.py"), *args], cwd=root,
+                           capture_output=True, text=True, timeout=TWIN_TIMEOUT_S)
+        if p.returncode:
+            raise AssertionError(f"(d) tools/{tool}.py exited {p.returncode}: {p.stderr[-2000:]}")
+        lines[tool] = [json.loads(x) for x in p.stdout.splitlines() if x.startswith("{")]
+        log(f"  (d) tools/{tool}.py {' '.join(args)} ({time.perf_counter() - t0:.1f} s): "
+            + "; ".join(json.dumps(x) for x in lines[tool]))
+    def nonzero(counts):  # a twin lists the wrappers its process imported
+        return {k: v for k, v in counts.items() if v}
+
+    (serve,) = lines["torch_bench_serve"]
+    if not (serve["value"] > 0 and serve["videos"] == n and serve["frames_per_video"] == t):
+        raise AssertionError(f"(d) the serving twin's line: {serve}")
+    check_counts(f"(d) the serving twin's {runs} timed calls", nonzero(serve["launches"]),
+                 nonzero(expected_launches(PER_ENCODED_FRAME, runs * t, runs * (t - 1))))
+    *videos, summary = lines["torch_bench_longvideo"]
+    if [v["frames"] for v in videos] != [37, 64] or summary["captures_by_bucket"] != {"64": 1} or [
+            v["captures"] for v in videos] != [1, 0]:
+        raise AssertionError(f"(d) the long-video twin's lines: {videos}, {summary}")
+    for v in videos:
+        f, made = v["frames"], v["captures"]
+        check_counts(f"(d) the long-video twin's {f} frames", nonzero(v["launches"]),
+                     nonzero(expected_launches(PER_ENCODED_FRAME, f + made, f - 1 + made)))
+    log(f"  (d) 37 and 64 frames in one capture (bucket 64), every twin's launches exact; the twins' device "
+        f"{serve['device']}, card {card}")
+
+
+def run_annotation(card, work, entry, name="sam2.1_hiera_t512", device="cuda") -> None:
+    """Phase 13 (a)-(c) for the preset ``name`` at full width in bf16 on
+    ``device`` with phase 9's weights and served videos (``entry``)."""
+    from us_video_medsam2_tpu_torch.inference.video_predictor import build_sam2_video_predictor
+
+    os.makedirs(work, exist_ok=True)
+    pred = build_sam2_video_predictor(name, state_dict=entry["host_sd"], fill_hole_area=8, device=device)
+    t0 = time.perf_counter()
+    log(f"  (a) the annotation server: {HTTP_FRAMES}-frame {HTTP_HW[0]}x{HTTP_HW[1]} 'RGBA' AVI upload, click, "
+        "box, track, masks.zip, tracked.mp4, DELETE")
+    run_http_session(card, pred, work)
+    log(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    run_concurrent_sessions(card, pred, work)
+    log(f"  (b) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    run_sharded_serving(card, name, entry["host_sd"], entry["serving"], device)
+    log(f"  (c) took {time.perf_counter() - t1:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -4627,7 +5127,7 @@ def main(argv=None) -> int:
     # 1. the card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/13] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[1/14] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     wait_for_memory()
 
     # 2. the build
@@ -4636,7 +5136,7 @@ def main(argv=None) -> int:
     lib = _lib.build(log=msgs.append)
     _lib.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/13] build: {lib.name} in {build_s:.2f} s (set-up)")
+    log(f"[2/14] build: {lib.name} in {build_s:.2f} s (set-up)")
     if msgs:
         (lib.parent / "nvcc.log").write_text("\n".join(msgs))
         regs = ptxas_report(msgs)
@@ -4649,7 +5149,7 @@ def main(argv=None) -> int:
         log("  (library built before this run: no compiler report)")
 
     # 3. each kernel against its plain version
-    log("[3/13] kernels vs plain versions at the main-path shapes (bf16)")
+    log("[3/14] kernels vs plain versions at the main-path shapes (bf16)")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(g)
     check_kernel_grads(g)
@@ -4658,15 +5158,15 @@ def main(argv=None) -> int:
     check_window_attention_v1(g, rows)
 
     # 4-5. the main path: sam2.1_hiera_t512, switches off, then on
-    log("[4/13] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
+    log("[4/14] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
     t512 = run_propagation("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME,
-                           PER_ENCODED_FRAME_FUSED, "main_path", "[5/13]", card, args.profile,
+                           PER_ENCODED_FRAME_FUSED, "main_path", "[5/14]", card, args.profile,
                            precompute=PRECOMPUTE_BATCH)
 
     # 6. EfficientMedSAM-S: the same, through the EfficientTAM entry point
-    log("[6/13] EfficientMedSAM-S: efficientmedsam_s_512, bf16, seeded weights and video")
+    log("[6/14] EfficientMedSAM-S: efficientmedsam_s_512, bf16, seeded weights and video")
     eff = run_propagation("efficientmedsam_s_512", build_efficienttam_video_predictor, PER_ENCODED_FRAME_VIT,
-                          PER_ENCODED_FRAME_VIT_FUSED, "efficienttam_s", "[6/13]", card, args.profile,
+                          PER_ENCODED_FRAME_VIT_FUSED, "efficienttam_s", "[6/14]", card, args.profile,
                           VIT_IOU_MARGIN)
     launches = {k: t512["default"][k] + eff["default"][k] for k in t512["default"]}
     for k in ("cxblock", "qkv_window_attention"):  # the kernels of the fused configuration
@@ -4677,7 +5177,7 @@ def main(argv=None) -> int:
          for cfg in ("default", "fused")}))
 
     # 7. the training path
-    log(f"[7/13] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
+    log(f"[7/14] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
         f"T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}, seeded weights and batch; without temporal fusion, then with "
         f"{GFTE_FUSION[0]}")
     t0 = time.perf_counter()
@@ -4688,7 +5188,7 @@ def main(argv=None) -> int:
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # 8. the predictor's long-video and editing paths
-    log("[8/13] long video and editing: sam2.1_hiera_t512, bf16, seeded weights; checkpoint, offload and "
+    log("[8/14] long video and editing: sam2.1_hiera_t512, bf16, seeded weights; checkpoint, offload and "
         "streaming, buckets, editing")
     t0 = time.perf_counter()
     run_long_video_and_editing("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME, card,
@@ -4697,30 +5197,40 @@ def main(argv=None) -> int:
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
     # 9. the entry points: the apps, batched serving, the image path
-    log("[9/13] entry points: sam2.1_hiera_t512, bf16, seeded weights; the apps' mains, batched serving, "
+    log("[9/14] entry points: sam2.1_hiera_t512, bf16, seeded weights; the apps' mains, batched serving, "
         "the image predictor and the automatic mask generator")
-    run_entry_points(card, os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
-                                        "entry_points"))
+    entry = run_entry_points(card, os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                                                "entry_points"))
 
     # 10. the training entry point: apps/train.py's main, resumed, served, GFTE, one NCCL rank, the native reader
-    log("[10/13] training entry point: apps/train.py at sam2.1_hiera_t512, bf16 with f32 master weights, from a "
+    log("[10/14] training entry point: apps/train.py at sam2.1_hiera_t512, bf16 with f32 master weights, from a "
         "reference-name .pt of the seeded weights, on a seeded NPZ corpus")
     run_training_entry(card, os.path.join(work, "training_entry"))
 
     # 11. the EfficientTAM training half
-    log(f"[11/13] EfficientTAM training: {VIT} train step, bf16 with f32 master weights, T {TRAIN_T}, B 1, "
+    log(f"[11/14] EfficientTAM training: {VIT} train step, bf16 with f32 master weights, T {TRAIN_T}, B 1, "
         f"O {TRAIN_OBJECTS}, seeded weights and batch; the hd-64 kernels at the training shapes, the host gate, a "
         f"frozen encoder, apps/train.py --cfg {VIT} on phase 10's corpus")
     vit_fixed = run_vit_training(card, os.path.join(work, "vit_training"),
                                  os.path.join(work, "training_entry", "corpus"))
 
     # 12. the measurement layer: traces, FLOPs, MFU, the two tools
-    log("[12/13] measurement layer: utils/profiling traces parsed by utils/traceparse, utils/flops, MFU, "
+    log("[12/14] measurement layer: utils/profiling traces parsed by utils/traceparse, utils/flops, MFU, "
         "tools/torch_profile_propagation.py and tools/torch_bench_train_step.py")
     run_measurement(card, os.path.join(work, "measurement"),
                     {"sam2.1_hiera_t512": t512_fixed, VIT: vit_fixed})
 
-    # 13. the kernels line (launches of the dropout kernels from the training
+    # 13. the annotation app over HTTP, two sessions at once, sharded serving, the two serving twins
+    log("[13/14] annotation server, concurrent sessions, sharded serving and the serving twins: "
+        "sam2.1_hiera_t512, bf16, phase 9's seeded weights")
+    t0 = time.perf_counter()
+    run_annotation(card, os.path.join(work, "annotation"), entry)
+    t1 = time.perf_counter()
+    run_twins(card)
+    log(f"  (d) took {time.perf_counter() - t1:.1f} s")
+    log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    # 14. the kernels line (launches of the dropout kernels from the training
     # steps, of cxblock and qkv_window_attention from the fused propagation
     # runs of both models, of the others from their default runs, where the
     # unwired window_attention_v1 launches none), the card line, the device line
@@ -4734,7 +5244,7 @@ def main(argv=None) -> int:
             "library_ms": r.library_ms,
         })
     detail = {r.name: r.shapes for r in rows.values()}
-    log("[13/13] per-shape detail " + json.dumps(detail))
+    log("[14/14] per-shape detail " + json.dumps(detail))
     peak = max(PEAK_RESERVED[0], torch.cuda.max_memory_reserved())
     log(f"  the run's peak reserved device memory {peak / 2**30:.3f} GiB (max_memory_reserved; "
         f"{MEMORY_NEED_GIB} GiB asked free at the start)")

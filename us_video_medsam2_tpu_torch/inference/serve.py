@@ -21,9 +21,17 @@ window. On the CPU the same body runs eagerly. Holes are then filled over
 all N·T frames at once, the prompted frame's too, as JAX's serving does
 (the interactive predictor yields a prompted frame's output unfilled).
 
+With ``mesh`` (``parallel/mesh.py``: one process a card under ``torchrun``)
+the video axis is sharded over the mesh's data axis as JAX's
+``in_shardings`` shard it: each rank serves its contiguous N / ranks videos
+on its card through the same path (one replay a frame over its rows) and
+the [N, T, 4fs, 4fs] logits are gathered on every rank. JAX replicates the
+weights and assumes every process holds the same ones; here the first call
+with a given predictor and mesh gathers a digest of each rank's weights and
+raises if two differ.
+
 Not ported: ``prepare_images``' fold (a TPU relayout; ``prep_frames`` takes
-its place) and the ``mesh`` argument, which shards the video axis over
-chips (``parallel/mesh.py`` is not ported; one process drives one card).
+its place).
 
 Per-video semantics match the interactive predictor's. At N > 1 the kernels'
 plans (the flash kernel's key splits, window attention's tiles) differ from
@@ -33,6 +41,7 @@ runs.
 
 from __future__ import annotations
 
+import hashlib
 import weakref
 
 import numpy as np
@@ -53,11 +62,38 @@ from us_video_medsam2_tpu_torch.inference.graphs import (
 from us_video_medsam2_tpu_torch.inference.transforms import prep_frames
 from us_video_medsam2_tpu_torch.models.memory_bank import write_memory
 from us_video_medsam2_tpu_torch.ops.connected_components import fill_holes_in_mask_scores
+from us_video_medsam2_tpu_torch.parallel.mesh import all_gather_objects, gather_batch, shard_batch
 
 MAX_COND_SLOTS = 1  # one prompted frame per video
 
 # each predictor's batched frame bodies, freed with the predictor
 SERVE_GRAPHS: "weakref.WeakKeyDictionary[object, FrameGraphs]" = weakref.WeakKeyDictionary()
+
+
+# the meshes over which each predictor's weights were found equal on every rank
+REPLICAS_CHECKED: "weakref.WeakKeyDictionary[object, list]" = weakref.WeakKeyDictionary()
+
+
+def weights_digest(model) -> str:
+    """SHA-256 of the model's state_dict: names, dtypes, shapes and bytes."""
+    h = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        h.update(f"{name} {t.dtype} {tuple(t.shape)}".encode())
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_replicated(predictor, mesh) -> None:
+    """On the first call with ``predictor`` and ``mesh``: every rank's
+    weights the same bits, else ``RuntimeError`` on every rank."""
+    checked = REPLICAS_CHECKED.setdefault(predictor, [])
+    if any(m is mesh for m in checked):
+        return
+    digests = all_gather_objects(weights_digest(predictor.model))
+    if len(set(digests)) > 1:
+        raise RuntimeError(f"the ranks hold different weights (digests by rank {[d[:12] for d in digests]}); "
+                           "sharded serving replicates one model")
+    checked.append(mesh)
 
 
 def serve_graphs(predictor) -> FrameGraphs:
@@ -135,7 +171,8 @@ def _serve(predictor, frames: torch.Tensor, coords: torch.Tensor, labels: torch.
 
 
 @torch.inference_mode()
-def batched_propagate(predictor, videos, point_coords, point_labels) -> torch.Tensor:
+def batched_propagate(predictor, videos, point_coords, point_labels, mesh=None, data_axis: str = "data"
+                      ) -> torch.Tensor:
     """Propagate N single-object videos at once on the predictor's device.
 
     videos: [N, T, S, S, 3] float normalized at model resolution (or uint8
@@ -144,15 +181,25 @@ def batched_propagate(predictor, videos, point_coords, point_labels) -> torch.Te
     model resolution; point_labels: [N, P]. Returns the low-res mask logits
     [N, T, 4fs, 4fs] (f32, on the device), holes filled when the predictor
     fills them. Multimask follows ``cfg.multimask_*`` and P, as a prompt
-    call of the interactive predictor decides it."""
+    call of the interactive predictor decides it. With ``mesh`` (a
+    ``DeviceMesh`` of ``parallel/mesh.py``) every rank passes the same N
+    videos, serves its block of them along ``data_axis`` (N must divide by
+    that axis's size, else ``ValueError``) and returns all N."""
     cfg = predictor.cfg
     dev = predictor.device
-    v = torch.as_tensor(np.asarray(videos) if not torch.is_tensor(videos) else videos).to(dev)
+    v = torch.as_tensor(np.asarray(videos) if not torch.is_tensor(videos) else videos)
+    coords = np.asarray(point_coords, np.float32)
+    labels = np.asarray(point_labels, np.int32)
+    if mesh is not None:
+        v, coords, labels = (shard_batch(x, mesh, 0, data_axis) for x in (v, coords, labels))
+        check_replicated(predictor, mesh)
+    v = v.to(dev)
     n, t = v.shape[:2]
     frames = prep_frames(v.reshape(n * t, *v.shape[2:]), cfg.image_size)
     frames = frames.reshape(n, t, *frames.shape[1:])
-    coords = torch.as_tensor(np.asarray(point_coords, np.float32), device=dev)
-    labels = torch.as_tensor(np.asarray(point_labels, np.int32), device=dev)
+    coords = torch.as_tensor(coords, device=dev)
+    labels = torch.as_tensor(labels, device=dev)
     num_pts = coords.shape[1]
     multimask = cfg.multimask_output_in_sam and cfg.multimask_min_pt_num <= num_pts <= cfg.multimask_max_pt_num
-    return _serve(predictor, frames, coords, labels, multimask)
+    out = _serve(predictor, frames, coords, labels, multimask)
+    return out if mesh is None else gather_batch(out, mesh, 0, data_axis)

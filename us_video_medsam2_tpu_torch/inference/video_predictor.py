@@ -42,6 +42,7 @@ non-conditioning memories around a prompted frame
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -153,6 +154,10 @@ class SAM2VideoPredictor:
         self.graphs = FrameGraphs()  # the frame body's CUDA graphs, by key
         # each tracked frame a replay of a captured body (on the card), else the body run eagerly
         self.use_graphs = self.device.type == "cuda"
+        # held by callers that share the predictor across threads around each
+        # call that reaches the device (apps/app.py): the graphs' buffers are
+        # the predictor's, one set a key, so two windows at once would share them
+        self.lock = threading.Lock()
 
     # ------------------------------------------------------------- state mgmt
     @torch.inference_mode()

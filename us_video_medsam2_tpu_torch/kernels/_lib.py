@@ -141,6 +141,17 @@ def counted(wrapper):
     return wrapper
 
 
+def zero_launches() -> None:
+    """Set every registered wrapper's launch count to 0."""
+    for w in COUNTED.values():
+        w.launches = 0
+
+
+def launch_counts() -> dict:
+    """{wrapper name: launches} of every wrapper registered so far."""
+    return {name: w.launches for name, w in COUNTED.items()}
+
+
 def stream_ptr(t) -> int:
     """The current ``cudaStream_t`` of t's device, without making a
     ``torch.cuda.Stream`` object."""
