@@ -340,7 +340,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    and ``tools/torch_bench_longvideo.py --lengths 37,64 --chunk 64`` as
    subprocesses: their JSON lines parse, and 37 and 64 frames share one
    capture; the phase's seconds;
-14. the run's peak reserved device memory, each path's launch counts, the kernels line (launches summed over the
+14. the last user-facing surfaces, ``sam2.1_hiera_t512`` at full width in
+   bf16 with phase 9's seeded weights, every run's launches exact: (a)
+   ``tools/torch_verify_real_ckpt.py``'s ``main`` on phase 9's infer_video
+   cases from a reference-name ``.pt``: exit 0, launches equal to phase 9's
+   infer_video, its CSV byte for byte phase 9's ``metrics.csv`` and its JSON
+   summary that CSV's ALL rows; exit 1 under ``--expect_dice 0.999``; (b) an
+   ``OFFLOAD_FRAMES``-frame 480x640 uint8 study offloaded to the host (its
+   frames preprocessed into the float16 host store) and streamed in chunks
+   of 64, three objects clicked on the middle frame, forward then in
+   reverse, held against the resident session of the same frames (the
+   store's) at phase 8 (b)'s gate; the resident session of the uint8 frames
+   (preprocessed on the card) beside it, printed; the store's bytes and the
+   peak device memory offloaded against resident (lower required); (c) a
+   seeded 16-frame 480x640 mp4 written by ``cv2.VideoWriter`` through phase
+   13 (a)'s HTTP session, bit for bit the predictor driven directly on the
+   frames ``utils/video_io`` decodes, ``tracked.mp4`` served; (d)
+   ``examples/torch_quickstart.py`` at 16 frames with phase 4's launches;
+   (e) ``fill_holes_in_mask_scores`` with ``method="fast"`` (and
+   "exact") on a seeded batch of 512² logits, bit for bit the host's; (f)
+   ``scripts/torch_train_single_host.sh`` (torchrun, one process a card) for
+   one epoch on phase 10's corpus with ``TE_ARGS``: each step's launches,
+   counted in the trainer's process by a ``sitecustomize`` hook, exactly
+   phase 10's, and its ``checkpoint.npz`` served with phase 4's launches;
+15. the run's peak reserved device memory, each path's launch counts, the kernels line (launches summed over the
    runs of both models), the card line, and the device line last.
 
 Exits non-zero without a result when no CUDA device is present or when the
@@ -541,6 +564,15 @@ GFTE_FUSION = ("gfte", 256, 3)
 TE_VIDEOS, TE_FRAMES, TE_HW = 6, 12, (600, 800)
 TE_ARGS = ["--num_frames", str(TRAIN_T), "--max_num_objects", str(TRAIN_OBJECTS), "--batch_size", "1",
            "--curriculum", "quantum", "--temporal_loss", "consistency", "--seed", str(SEED)]
+
+
+# phase 14: the last user-facing surfaces
+OFFLOAD_FRAMES = 200  # (b): a 480x640 uint8 study (so preprocessed into the float16 host store)
+OFFLOAD_HW = (480, 640)
+QUICKSTART_FRAMES = 16  # (d)
+FAST_FILL_SHAPE = (4, 512, 512)  # (e): seeded logits; max areas below
+FAST_FILL_AREAS = {"fast": (8, 16), "exact": (8,)}  # the fast filler's box count sees 2·max_area+1 px around
+LAUNCHER_TIMEOUT_S = 600
 
 
 # device memory the whole run needs free when it starts: its peak reserved
@@ -3514,27 +3546,29 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def counted_app(what, fn, prompts: int, tracked: int, on_card: bool = True):
+def counted_app(what, fn, prompts: int, tracked: int, on_card: bool = True,
+                builder: str = "build_sam2_video_predictor_npz"):
     """``fn()`` (an app's ``main``) with the launches counted around it and,
     on the card, held against the predictor's: one encode per prompted and
     per tracked frame, one track per tracked frame, one of each per capture
-    the app's predictor made (read through the builder the app calls; the
-    host's plain versions count nothing). Returns the launches and seconds."""
+    the app's predictor made (read through ``builder``, the function of
+    ``core/build.py`` the app calls; the host's plain versions count
+    nothing). Returns the launches and seconds."""
     from us_video_medsam2_tpu_torch.core import build as build_mod
 
     made = []
-    real = build_mod.build_sam2_video_predictor_npz
+    real = getattr(build_mod, builder)
 
     def recording(*args, **kwargs):
         made.append(real(*args, **kwargs))
         return made[-1]
 
-    build_mod.build_sam2_video_predictor_npz = recording
+    setattr(build_mod, builder, recording)
     t0 = time.perf_counter()
     try:
         _, launches = read_counts(fn)
     finally:
-        del build_mod.build_sam2_video_predictor_npz
+        delattr(build_mod, builder)
     secs = time.perf_counter() - t0
     captures = sum(p.graphs.captures for p in made)
     log(f"  {what}: {secs:.2f} s (the predictor built from the checkpoint, then the run); {prompts} prompted and "
@@ -3656,7 +3690,8 @@ def check_apps(name, host_sd, cfg, card, work, device="cuda"):
         raise AssertionError(f"infer_case: card and host segmentations disagree (voxel IoU outside the band "
                              f"{v_clear:.5f})")
     os.remove(ckpt)
-    return per_app
+    return {"launches": per_app, "videos": data["videos"], "first": data["video_first"],
+            "metrics_csv": os.path.join(out["video"], "metrics.csv")}
 
 
 class LogitRecorder:
@@ -4069,7 +4104,8 @@ def run_entry_points(card, work, name="sam2.1_hiera_t512", device="cuda"):
     +10): the apps, batched serving, the image path. The host's runs are the
     plain versions in f32; the card's own gates (launches, captures, the
     sync-free window) are held on the card only. Returns the weights and
-    serving's result (``check_serving``'s), which phase 13 serves again."""
+    serving's result (``check_serving``'s), which phase 13 serves again, and
+    the apps' (``check_apps``'), whose infer_video cases phase 14 verifies."""
     import torch
 
     from us_video_medsam2_tpu_torch.core.build import build_sam2
@@ -4080,7 +4116,7 @@ def run_entry_points(card, work, name="sam2.1_hiera_t512", device="cuda"):
     host_sd = {k: v.clone() for k, v in model.state_dict().items()}
     t0 = time.perf_counter()
     log("  (a) the apps through their mains, from a reference-name .pt of the seeded weights")
-    check_apps(name, host_sd, model.cfg, card, work, device)
+    apps = check_apps(name, host_sd, model.cfg, card, work, device)
     log(f"  (a) took {time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
     log(f"  (b) batched serving: {SERVE_N} videos x {SERVE_T} frames, the video axis as the batch axis")
@@ -4091,7 +4127,7 @@ def run_entry_points(card, work, name="sam2.1_hiera_t512", device="cuda"):
     check_image_path(name, host_sd, card, device)
     log(f"  (c) took {time.perf_counter() - t1:.1f} s")
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
-    return {"host_sd": host_sd, "serving": served}
+    return {"host_sd": host_sd, "serving": served, "apps": apps}
 
 
 # ----------------------------------------------------------------- phase 10
@@ -4757,15 +4793,18 @@ def same_session_masks(got: dict, want: dict, what: str) -> int:
     return len(want)
 
 
-def run_http_session(card, pred, work, per_encoded=PER_ENCODED_FRAME) -> dict:
+def run_http_session(card, pred, work, per_encoded=PER_ENCODED_FRAME, tag="(a)", upload="upload.avi",
+                     writer=None) -> dict:
     """Phase 13 (a): the annotation server (``apps/http_api.create_server``,
     port 0, a daemon thread) through real HTTP round trips: upload of a
-    seeded AVI of raw 'RGBA' frames, a click, a box, track, ``masks.zip``,
-    ``tracked.mp4`` (501 without cv2), DELETE and a 404 after. The session's
-    masks and the zip's PNGs against the same predictor driven directly on
-    the same frames, bit for bit; each request's launches exact (on the
-    card). The direct run goes first and captures the frame body's graph, so
-    the session's requests capture nothing."""
+    seeded AVI of raw 'RGBA' frames (``upload``, written by ``writer``, by
+    default ``session_video``; phase 14 (c) an mp4), a click, a box, track,
+    ``masks.zip``, ``tracked.mp4`` (501 without cv2), DELETE and a 404 after.
+    The session's masks and the zip's PNGs against the same predictor driven
+    directly on the same frames, bit for bit; each request's launches exact
+    (on the card). The direct run goes first and captures the frame body's
+    graph, so the session's requests capture nothing. ``tag`` heads its log
+    lines."""
     import threading
 
     import numpy as np
@@ -4774,13 +4813,14 @@ def run_http_session(card, pred, work, per_encoded=PER_ENCODED_FRAME) -> dict:
     from us_video_medsam2_tpu_torch.apps.http_api import create_server
 
     on_card = pred.device.type == "cuda"
-    path = os.path.join(work, "upload.avi")
-    click, box = session_video(path, SEED + 30)
+    path = os.path.join(work, upload)
+    click, box = (writer or session_video)(path, SEED + 30)
     n = HTTP_FRAMES
     t0 = time.perf_counter()
+    captures = pred.graphs.captures
     want = drive_directly(pred, path, click, box)
-    log(f"  (a) direct run: {n} frames at {HTTP_HW[0]}x{HTTP_HW[1]}, {MAX_OBJECTS} object slots, objects 1 "
-        f"(click) and 2 (box); {pred.graphs.captures} capture(s), {time.perf_counter() - t0:.2f} s")
+    log(f"  {tag} direct run: {n} frames at {HTTP_HW[0]}x{HTTP_HW[1]}, {MAX_OBJECTS} object slots, objects 1 "
+        f"(click) and 2 (box); {pred.graphs.captures - captures} capture(s), {time.perf_counter() - t0:.2f} s")
     captures = pred.graphs.captures
     os.makedirs(os.path.join(work, "http"), exist_ok=True)
     server = create_server(pred, port=0, tmp_root=os.path.join(work, "http"))
@@ -4793,16 +4833,16 @@ def run_http_session(card, pred, work, per_encoded=PER_ENCODED_FRAME) -> dict:
         out, launches = read_counts(fn)
         secs = time.perf_counter() - t
         if on_card:
-            check_counts(f"(a) {what}", launches, expected_launches(per_encoded, encoded, tracked))
+            check_counts(f"{tag} {what}", launches, expected_launches(per_encoded, encoded, tracked))
         return out, secs, launches
 
     try:
         with open(path, "rb") as f:
             body = f.read()
         meta, up_s, _ = timed("upload", lambda: http_json(base, "POST", "/sessions", body=body,
-                                                          headers={"X-Filename": "upload.avi"}), 0, 0)
+                                                          headers={"X-Filename": upload}), 0, 0)
         if (meta["num_frames"], meta["height"], meta["width"]) != (n, *HTTP_HW):
-            raise AssertionError(f"(a) upload: {meta}")
+            raise AssertionError(f"{tag} upload: {meta}")
         sid = meta["session_id"]
         clicked, click_s, click_launches = timed("click", lambda: http_json(
             base, "POST", f"/sessions/{sid}/click",
@@ -4813,12 +4853,12 @@ def run_http_session(card, pred, work, per_encoded=PER_ENCODED_FRAME) -> dict:
             base, "POST", f"/sessions/{sid}/track", body=b"{}"), n - 1, n - 1)
         if clicked["obj_ids"] != [1] or boxed["obj_ids"] != [1, 2] or sorted(map(int, tracked["frames"])) != list(
                 range(n)):
-            raise AssertionError(f"(a) bodies: click {clicked}, box {boxed}, frames {sorted(tracked['frames'])}")
+            raise AssertionError(f"{tag} bodies: click {clicked}, box {boxed}, frames {sorted(tracked['frames'])}")
         sess = server.RequestHandlerClass.sessions.get(sid)
         got = dict(sess.masks_by_frame)
         code, ctype, zbody = http_call(base, "GET", f"/sessions/{sid}/export/masks.zip")
         if code != 200 or ctype != "application/zip":
-            raise AssertionError(f"(a) masks.zip: {code} {ctype}")
+            raise AssertionError(f"{tag} masks.zip: {code} {ctype}")
         try:
             import cv2  # noqa: F401
             has_cv2 = True
@@ -4827,8 +4867,8 @@ def run_http_session(card, pred, work, per_encoded=PER_ENCODED_FRAME) -> dict:
         code, ctype, mp4 = http_call(base, "GET", f"/sessions/{sid}/export/tracked.mp4")
         if has_cv2 and (code, ctype) != (200, "video/mp4") or not has_cv2 and (
                 code != 501 or b"cv2" not in mp4):
-            raise AssertionError(f"(a) tracked.mp4 with{'' if has_cv2 else 'out'} cv2: {code} {mp4[:200]!r}")
-        log(f"  (a) tracked.mp4: {f'{len(mp4)} bytes' if has_cv2 else 'cv2 is absent here: 501, ' + repr(mp4[:120])}")
+            raise AssertionError(f"{tag} tracked.mp4 with{'' if has_cv2 else 'out'} cv2: {code} {mp4[:200]!r}")
+        log(f"  {tag} tracked.mp4: {f'{len(mp4)} bytes' if has_cv2 else 'cv2 is absent here: 501, ' + repr(mp4[:120])}")
         http_json(base, "DELETE", f"/sessions/{sid}")
         http_json(base, "POST", f"/sessions/{sid}/track", body=b"{}", want=404)
         healthz = http_json(base, "GET", "/healthz")
@@ -4836,32 +4876,32 @@ def run_http_session(card, pred, work, per_encoded=PER_ENCODED_FRAME) -> dict:
         server.shutdown()
         server.server_close()
     if pred.graphs.captures != captures:
-        raise AssertionError(f"(a) the session captured {pred.graphs.captures - captures} graph(s)")
-    frames = same_session_masks(got, want, "(a) the HTTP session vs the predictor driven directly")
+        raise AssertionError(f"{tag} the session captured {pred.graphs.captures - captures} graph(s)")
+    frames = same_session_masks(got, want, f"{tag} the HTTP session vs the predictor driven directly")
     import io
     import zipfile
 
     with zipfile.ZipFile(io.BytesIO(zbody)) as z:
         names = sorted(z.namelist())
         if names != [f"{f:05d}.png" for f in range(n)]:
-            raise AssertionError(f"(a) masks.zip holds {names[:4]}...")
+            raise AssertionError(f"{tag} masks.zip holds {names[:4]}...")
         for f, (ids, masks) in want.items():
             canvas = np.zeros(HTTP_HW, np.uint8)
             for oi, oid in enumerate(ids):
                 canvas[masks[oi]] = oid
             if not np.array_equal(read_png_gray(z.read(f"{f:05d}.png")), canvas):
-                raise AssertionError(f"(a) masks.zip frame {f} differs from the direct run's")
+                raise AssertionError(f"{tag} masks.zip frame {f} differs from the direct run's")
     fg = [round(float(want[f][1][:2].mean()), 4) for f in (0, n // 2, n - 1)]
     per_enc = {k: track_launches[k] / (n - 1) for k in per_encoded}
     per_trk = {k: track_launches[k] / (n - 1) for k in PER_TRACKED_FRAME}
-    log(f"  (a) the HTTP session vs the predictor driven directly: {frames} of {n} frames bit-identical (ids and "
+    log(f"  {tag} the HTTP session vs the predictor driven directly: {frames} of {n} frames bit-identical (ids and "
         f"masks of {MAX_OBJECTS} slots), masks.zip's {n} PNGs equal to the direct masks' canvases; foreground "
         f"of objects 1-2 at frames 0 / {n // 2} / {n - 1}: {fg}; healthz {healthz}")
-    log(f"  (a) upload-to-session {1e3 * up_s:.2f} ms ({len(body) / 1e6:.1f} MB, decoded and resized on the host), "
+    log(f"  {tag} upload-to-session {1e3 * up_s:.2f} ms ({len(body) / 1e6:.3f} MB, decoded and resized on the host), "
         f"click {1e3 * click_s:.2f} ms, box {1e3 * box_s:.2f} ms, track {1e3 * track_s:.2f} ms = "
         f"{1e3 * track_s / (n - 1):.2f} ms per tracked frame (HTTP round trips, host clock; {MAX_OBJECTS} "
         f"object slots, masks at {HTTP_HW[0]}x{HTTP_HW[1]}) on {card}")
-    log(f"  (a) launches: click {({k: v for k, v in click_launches.items() if v})} (one encoded frame); track per "
+    log(f"  {tag} launches: click {({k: v for k, v in click_launches.items() if v})} (one encoded frame); track per "
         f"encoded frame {per_enc}, per tracked frame {per_trk}")
     return {"upload_ms": 1e3 * up_s, "click_ms": 1e3 * click_s, "track_ms_per_frame": 1e3 * track_s / (n - 1)}
 
@@ -5096,6 +5136,417 @@ def run_annotation(card, work, entry, name="sam2.1_hiera_t512", device="cuda") -
     log(f"  (c) took {time.perf_counter() - t1:.1f} s")
 
 
+# ----------------------------------------------------------------- phase 14
+def quiet(fn, *args):
+    """(fn(*args), what it printed), its standard output captured."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        return fn(*args), buf.getvalue()
+
+
+def run_verifier(card, work, entry, name="sam2.1_hiera_t512", device="cuda") -> None:
+    """Phase 14 (a): ``tools/torch_verify_real_ckpt.py``'s ``main`` on phase
+    9's infer_video cases from a reference-name ``.pt`` of phase 9's weights:
+    exit 0, its launches equal to phase 9's infer_video run (and, on the card,
+    the predictor's), its ``evaluation_summary.csv`` byte for byte phase 9's
+    ``metrics.csv`` (the same aggregator over the same frames) and its JSON
+    summary's means that CSV's ALL rows; then on the first case under
+    ``--expect_dice 0.999``: exit 1 and a FAIL line (seeded weights track far
+    from the ground truth), its launches exact too."""
+    import csv
+    import io
+
+    import torch
+
+    from us_video_medsam2_tpu_torch.core.config import resolve_config
+
+    apps = entry["apps"]
+    on_card = torch.device(device).type == "cuda"
+    os.makedirs(work, exist_ok=True)
+    ckpt = os.path.join(work, f"seed{SEED}_{name}_reference.pt")
+    torch.save({"model": to_reference_state_dict(entry["host_sd"], resolve_config(name))}, ckpt)
+    tool = load_tool("torch_verify_real_ckpt")
+    firsts = apps["first"]
+
+    def verify(out_dir, *extra):
+        ran = []
+        args = [ckpt, "--data_dir", apps["videos"], "--cfg", name, "--out_dir", out_dir, "--device", str(device),
+                *extra]
+        cases = len(firsts) if "--cases" not in extra else int(extra[extra.index("--cases") + 1])
+        launches, secs = counted_app(f"(a) tools/torch_verify_real_ckpt.py {' '.join(args[3:])}",
+                                     lambda: ran.append(quiet(tool.main, args)), prompts=cases,
+                                     tracked=sum(APP_FRAMES - 1 - f for f in firsts[:cases]), on_card=on_card)
+        (rc, out), = ran
+        lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+        if len(lines) != 1:
+            raise AssertionError(f"(a) the verifier printed {len(lines)} JSON lines: {out[-2000:]}")
+        log(f"  (a) exit {rc}, {secs:.2f} s; " + " | ".join(x for x in out.splitlines() if not x.startswith("{")))
+        log(f"  (a) {json.dumps(lines[0])}")
+        return rc, lines[0], out, launches
+
+    rc, summary, _, launches = verify(os.path.join(work, "verify"))
+    want_launches = apps["launches"]["infer_video"][0]
+    with open(apps["metrics_csv"], "rb") as f:
+        want_csv = f.read()
+    with open(summary["csv"], "rb") as f:
+        got_csv = f.read()
+    alls = {row[1]: {"dice": float(row[2]), "iou": float(row[3]), "acc": float(row[4])}
+            for row in csv.reader(io.StringIO(want_csv.decode())) if row[0] == "ALL"}
+    log(f"  (a) launches {launches} against phase 9's infer_video {want_launches}; the CSV "
+        f"{'byte for byte' if got_csv == want_csv else 'NOT'} phase 9's metrics.csv ({len(want_csv)} bytes); "
+        f"global means {'equal to' if summary['global_means'] == alls else 'NOT'} its ALL rows")
+    if rc != 0 or launches != want_launches or got_csv != want_csv or summary["global_means"] != alls or (
+            summary["cases"] != len(firsts)):
+        raise AssertionError("(a) the verifier disagrees with phase 9's infer_video on the same cases")
+    rc, _, out, _ = verify(os.path.join(work, "verify_gate"), "--cases", "1", "--expect_dice", "0.999")
+    if rc != 1 or "FAIL: class-1 Dice" not in out:
+        raise AssertionError(f"(a) --expect_dice 0.999 exited {rc} (1 expected): {out[-500:]}")
+    os.remove(ckpt)
+
+
+def bidirectional(pred, frames, hw, clicks, mid, chunk=None, **init_kw):
+    """Phase 14 (b)'s session: ``init_state(frames, *hw, **init_kw)`` with one
+    object a click, all on frame ``mid``; propagation forward from ``mid``,
+    then in reverse from it, ``chunk`` frames a chunk. Returns ({(direction,
+    frame): logits [O, H, W]} in the order yielded, the state, seconds of
+    propagation)."""
+    state = pred.init_state(frames, *hw, max_objects=len(clicks), **init_kw)
+    for o, xy in enumerate(clicks, 1):
+        pred.add_new_points_or_box(state, mid, o, points=[list(xy)], labels=[1])
+    out = {}
+    sync(pred.device)
+    t0 = time.perf_counter()
+    for direction, reverse in (("forward", False), ("reverse", True)):
+        for f, ids, masks in pred.propagate_in_video(state, start_frame_idx=mid, reverse=reverse,
+                                                     chunk_size=chunk):
+            if ids != list(range(1, len(clicks) + 1)):
+                raise AssertionError(f"{direction} frame {f}: object ids {ids}")
+            out[(direction, f)] = masks[:, 0]
+    sync(pred.device)
+    return out, state, time.perf_counter() - t0
+
+
+def run_offload_study(card, pred, frames=OFFLOAD_FRAMES, hw=OFFLOAD_HW, chunk=STREAM_CHUNK) -> dict:
+    """Phase 14 (b): a ``frames``-frame uint8 study at ``hw`` (not the model's
+    resolution, so ``init_state`` preprocesses it on the host into the float16
+    store), three objects clicked on the middle frame, streamed ``chunk``
+    frames a chunk forward and then in reverse; against the resident session
+    of the same frames (the store's, as f32 on the device) at phase 8 (b)'s
+    graph-vs-eager gate (the same kernels on the same values); the resident
+    session of the uint8 frames (preprocessed on the card in f32) beside it,
+    its agreement printed, not held (the float16 store rounds the frames).
+    Each session's launches exact on the card; the store's bytes and the
+    peak device memory of the offloaded and the resident session (the
+    offloaded lower). Returns the numbers."""
+    import numpy as np
+    import torch
+
+    on_card = pred.device.type == "cuda"
+    mid = frames // 2
+    t0 = time.perf_counter()
+    video, _, blobs = make_video(frames, hw[0], SEED + 50, width=hw[1])
+    clicks = blob_clicks(blobs, frames=(mid,))[mid]
+    log(f"  (b) video: {frames} frames of {hw[0]}x{hw[1]} uint8 ({video.nbytes / 2**20:.1f} MiB), "
+        f"{len(clicks)} objects clicked on frame {mid}, made in {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    store = []
+
+    def session(what, fn):
+        captures = pred.graphs.captures
+        if on_card:
+            torch.cuda.empty_cache()
+            ((masks, state, secs), peak), launches = read_counts(lambda: peak_bytes(fn))
+        else:
+            (masks, state, secs), peak, launches = fn(), None, None
+        made = pred.graphs.captures - captures
+        tracked = sum(1 for d, f in masks if f != mid)
+        if on_card:
+            check_counts(f"(b) {what}", launches, expected_launches(PER_ENCODED_FRAME, 1 + tracked + made,
+                                                                   tracked + made))
+        order = [k for k in masks]
+        want = [("forward", f) for f in range(mid, frames)] + [("reverse", f) for f in range(mid, -1, -1)]
+        if order != want:
+            raise AssertionError(f"(b) {what}: frames yielded {order[:4]}... not {want[:4]}...")
+        runs[what] = (masks, peak)
+        log(f"  (b) {what}: {tracked} tracked frames, {made} capture(s), propagation {secs:.3f} s = "
+            f"{1e3 * secs / tracked:.3f} ms a tracked frame (host clock, captures included)"
+            + (f", peak device memory {peak / 2**20:.1f} MiB" if peak is not None else ""))
+        return state
+
+    def offloaded():
+        out = bidirectional(pred, video, hw, clicks, mid, chunk, offload_video_to_host=True)
+        store.append(out[1].images_host)
+        return out
+
+    state = session(f"offloaded, chunks of {chunk}", offloaded)
+    host = store[0]
+    if host.dtype != np.float16 or host.shape[1:3] != (pred.cfg.image_size,) * 2 or not state.offloaded:
+        raise AssertionError(f"(b) the host store is {host.dtype} {host.shape}, not float16 at model resolution")
+    log(f"  (b) host store: {host.dtype} {tuple(host.shape)}, {host.nbytes} bytes ({host.nbytes / 2**20:.1f} MiB; "
+        f"the uint8 video {video.nbytes} bytes, f32 frames on the device would be {2 * host.nbytes} bytes)")
+    del state
+    session("resident, the store's frames", lambda: bidirectional(
+        pred, torch.from_numpy(host.astype(np.float32)), hw, clicks, mid))
+    session("resident, the uint8 frames", lambda: bidirectional(pred, video, hw, clicks, mid))
+    (off, p_off), (res, p_res), (raw, _) = (runs[k] for k in runs)
+    per_object = {(d, f, o): m[o] for (d, f), m in off.items() for o in range(m.shape[0])}
+    hold_graph_against_eager(per_object, {(d, f, o): m[o] for (d, f), m in res.items() for o in range(m.shape[0])},
+                             f"(b) {frames}-frame study, 3 objects, both directions",
+                             "offloaded (float16 store) and streamed vs resident on the same frames")
+    worst, least = 0.0, 1.0
+    for k, m in raw.items():
+        a, b = off[k].astype("float64"), m.astype("float64")
+        worst = max(worst, float(((a - b) ** 2).sum() ** 0.5 / max(((b ** 2).sum()) ** 0.5, 1e-12)))
+        clear = abs(b) > SIGN_BAND * float((b ** 2).mean()) ** 0.5
+        least = min(least, iou((a > 0) & clear, (b > 0) & clear))
+    log(f"  (b) offloaded vs the resident session of the uint8 frames (preprocessed on the card in f32): worst "
+        f"frame's logit rel-L2 {worst:.4e}, least mask IoU outside the band {least:.5f} over {len(raw)} frames "
+        f"(printed, not held: the float16 store rounds the frames)")
+    out = {"host_store_bytes": int(host.nbytes), "worst_rel_l2_vs_uint8": worst, "least_iou_vs_uint8": least}
+    if on_card:
+        log(f"  (b) peak device memory: offloaded {p_off / 2**20:.1f} MiB vs resident {p_res / 2**20:.1f} MiB "
+            f"({(p_res - p_off) / 2**20:.1f} MiB lower); on {card}")
+        if p_off >= p_res:
+            raise AssertionError("(b) the offloaded session's peak is not below the resident session's")
+        out.update(peak_offloaded=p_off, peak_resident=p_res)
+    return out
+
+
+def write_mp4(path, seed):
+    """A seeded ``HTTP_FRAMES``-frame ``HTTP_HW`` video of moving blobs as an
+    mp4 (``mp4v``, lossy) written by ``cv2.VideoWriter``; returns its click
+    (blob 0) and box (blob 1's extent) on frame 0, as ``session_video``."""
+    import numpy as np
+
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("(c) needs cv2 to write and decode an mp4, and it does not import here") from e
+    h, w = HTTP_HW
+    video, click, blobs = make_video(HTTP_FRAMES, h, seed, width=w)
+    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10, (w, h))
+    if not out.isOpened():
+        raise RuntimeError(f"(c) cv2.VideoWriter could not open {path} for mp4v")
+    for f in video:
+        out.write(np.ascontiguousarray(f[..., ::-1]))
+    out.release()
+    ys, xs = blobs[0, 1].nonzero()
+    return list(click), [float(xs.min()), float(ys.min()), float(xs.max()), float(ys.max())]
+
+
+def run_quickstart(card, name="sam2.1_hiera_t512", device="cuda", frames=QUICKSTART_FRAMES) -> None:
+    """Phase 14 (d): ``examples/torch_quickstart.py``'s ``main`` (its own
+    predictor, random weights from seed 0, one click on frame 0): exit 0,
+    every frame propagated, and phase 4's launches for a run of ``frames``
+    frames (one encode a frame, one track a frame past the first, one of each
+    a capture)."""
+    import importlib.util
+
+    import torch
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "torch_quickstart.py")
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    ran = []
+    launches, secs = counted_app(
+        f"(d) examples/torch_quickstart.py --frames {frames}",
+        lambda: ran.append(quiet(quickstart.main, ["--cfg", name, "--frames", str(frames), "--device", str(device)])),
+        prompts=1, tracked=frames - 1, on_card=torch.device(device).type == "cuda",
+        builder="build_sam2_video_predictor")
+    (rc, out), = ran
+    log("  (d) " + " | ".join(out.splitlines()) + f"; launches {launches}")
+    if rc != 0 or f"propagated {frames} frames; mean Dice vs synthetic GT:" not in out:
+        raise AssertionError(f"(d) the quickstart exited {rc}: {out[-500:]}")
+
+
+def check_fast_fill(card, device="cuda", shape=FAST_FILL_SHAPE, areas=FAST_FILL_AREAS) -> None:
+    """Phase 14 (e): ``fill_holes_in_mask_scores`` with ``method`` "fast"
+    (JAX's gather-free filler: 256 masked 8-dilations from the border, a
+    (2·max_area+1)² box count) and "exact" on a seeded batch of logits whose
+    sign regions hold pockets of every size, on ``device`` against the host,
+    bit for bit; the pixels each fills and the device's ms a call printed."""
+    import torch
+    import torch.nn.functional as F
+
+    from us_video_medsam2_tpu_torch.ops.connected_components import fill_holes_in_mask_scores
+
+    g = torch.Generator().manual_seed(SEED + 60)
+    b, h, w = shape
+    noise = torch.randn(b, 1, h, w, generator=g)
+    # ~4% background, in ~1,500 pockets a 512² frame, most of at most 8 px
+    logits = (F.avg_pool2d(noise, 9, stride=1, padding=4) * 8 + 1.5)[:, 0]
+    on_dev = logits.to(device)
+    for method, max_areas in areas.items():
+        for a in max_areas:
+            want = fill_holes_in_mask_scores(logits, a, method=method)
+            fill_holes_in_mask_scores(on_dev, a, method=method)  # warm-up
+            sync(device)
+            t0 = time.perf_counter()
+            got = fill_holes_in_mask_scores(on_dev, a, method=method)
+            sync(device)
+            ms = 1e3 * (time.perf_counter() - t0)
+            same = torch.equal(got.cpu(), want)
+            filled = int((want != logits).sum())
+            log(f"  (e) method {method!r}, max_area {a}: {filled} of {logits.numel()} pixels filled on "
+                f"{b} x {h}x{w} logits; {device} {'bit for bit' if same else 'NOT equal to'} the host's; "
+                f"{ms:.2f} ms a call (host clock, one call after a warm-up) on {card}")
+            if not same or not filled:
+                raise AssertionError(f"(e) method {method!r} at max_area {a}: the device and the host disagree, "
+                                     "or nothing was filled")
+
+
+# the hook (f) puts in the trainer's process: each train step's kernel
+# launches, every count set to 0 just before the step, dumped as JSON at exit
+STEP_HOOK = """# written by chip_smoke.py phase 14 (f): counts each train step's kernel launches
+import atexit
+import importlib.machinery
+import importlib.util
+import json
+import os
+import sys
+
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:  # the interpreter's own sitecustomize, which this file shadows
+    _mod = importlib.util.module_from_spec(_spec)
+    _spec.loader.exec_module(_mod)
+
+_out = os.environ.get("CHIP_SMOKE_STEP_LAUNCHES")
+if _out and "LOCAL_RANK" in os.environ:  # a torchrun worker, not the agent
+    from us_video_medsam2_tpu_torch.kernels import _lib
+    from us_video_medsam2_tpu_torch.training import trainer
+
+    _steps = []
+    _orig = trainer.make_train_step
+
+    def make_train_step(cfg):
+        step = _orig(cfg)
+
+        def counted(state, batch, gen):
+            _lib.zero_launches()
+            m = step(state, batch, gen)
+            _steps.append({"n_init": m["plan"].n_init, "launches": _lib.launch_counts(),
+                           "core_loss": float(m["core_loss"])})
+            return m
+
+        return counted
+
+    trainer.make_train_step = make_train_step
+
+    def _dump():
+        with open(_out, "w") as f:
+            json.dump(_steps, f)
+
+    atexit.register(_dump)
+"""
+
+
+def run_launcher(card, work, entry, corpus, name="sam2.1_hiera_t512", device="cuda", epochs=1) -> None:
+    """Phase 14 (f): ``scripts/torch_train_single_host.sh CORPUS OUT CKPT``
+    (torchrun, one process a visible card) for ``epochs`` epoch(s) of phase
+    10's corpus from a reference-name ``.pt`` of phase 9's weights, with the
+    arguments cut as phase 10's (``TE_ARGS``, ``--cfg``, ``--resolution``,
+    ``--device``); a ``sitecustomize`` hook on the trainer process's path
+    (``STEP_HOOK``) counts each step's launches there, which must be phase
+    10's exactly (on the card); its ``checkpoint.npz`` loads into the
+    predictor, whose 16-frame run has phase 4's launches."""
+    import shutil
+    import types
+
+    import numpy as np
+    import torch
+
+    from us_video_medsam2_tpu_torch.core.config import resolve_config
+    from us_video_medsam2_tpu_torch.inference.video_predictor import build_sam2_video_predictor
+
+    on_card = torch.device(device).type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(work, ignore_errors=True)
+    hook = os.path.join(work, "hook")
+    os.makedirs(hook)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(STEP_HOOK)
+    cfg = resolve_config(name)
+    ckpt = os.path.join(work, f"seed{SEED}_{name}_reference.pt")
+    torch.save({"model": to_reference_state_dict(entry["host_sd"], cfg)}, ckpt)
+    out, steps_json = os.path.join(work, "run"), os.path.join(work, "steps.json")
+    cmd = ["bash", os.path.join(root, "scripts", "torch_train_single_host.sh"), corpus, out, ckpt,
+           "--epochs", str(epochs), "--cfg", name, "--resolution", str(cfg.image_size), "--device", str(device),
+           *TE_ARGS]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT", "NPROC_PER_NODE")}
+    env.update(PYTHONPATH=os.pathsep.join([hook, root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else [])),
+               PATH=os.path.dirname(sys.executable) + os.pathsep + env.get("PATH", ""), PYTHON=sys.executable,
+               CHIP_SMOKE_STEP_LAUNCHES=steps_json)
+    if not on_card:
+        env["NPROC_PER_NODE"] = "1"
+    log(f"  (f) {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=LAUNCHER_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if p.returncode:
+        raise AssertionError(f"(f) the launcher exited {p.returncode}: {p.stdout[-1500:]} {p.stderr[-3000:]}")
+    with open(steps_json) as f:
+        steps = json.load(f)
+    with open(os.path.join(out, "train_stats.json")) as f:
+        records = [json.loads(line) for line in f]
+    log(f"  (f) exit 0 in {secs:.1f} s (torchrun, the trainer's start-up, {len(steps)} steps, the checkpoint); "
+        f"train_stats {[round(r['Losses/train_all_loss'], 4) for r in records]}")
+    if len(records) != epochs or not steps:
+        raise AssertionError(f"(f) {len(records)} epochs of stats and {len(steps)} steps recorded")
+    rec = StepRecorder()
+    rec.steps = [(types.SimpleNamespace(n_init=s["n_init"]), s["launches"], s["core_loss"]) for s in steps]
+    rec.check("(f) the launcher's steps, counted in the trainer's process", on_card)
+    video, click, _ = make_video(FRAMES, cfg.image_size, SEED)
+    pred = build_sam2_video_predictor(name, ckpt_path=os.path.join(out, "checkpoint.npz"), fill_hole_area=8,
+                                      device=device)
+    (masks, _, _), made = counted_run(pred, PER_ENCODED_FRAME, "(f) the launcher's checkpoint.npz served",
+                                      lambda: run_main_path(pred, video, click))
+    in_order(masks, FRAMES, "(f) served")
+    if not all(np.isfinite(m).all() for m in masks.values()):
+        raise AssertionError("(f) the served checkpoint gives non-finite logits")
+    log(f"  (f) checkpoint.npz ({os.path.getsize(os.path.join(out, 'checkpoint.npz')) / 2**20:.1f} MiB) served "
+        f"{FRAMES} frames, {made} capture(s), launches exact; on {card}")
+    os.remove(ckpt)
+
+
+def run_surfaces(card, work, entry, corpus, name="sam2.1_hiera_t512", device="cuda") -> dict:
+    """Phase 14 (a)-(f) for the preset ``name`` at full width in bf16 on
+    ``device`` with phase 9's weights (``entry``) and phase 10's corpus.
+    Returns (b)'s and (c)'s numbers."""
+    from us_video_medsam2_tpu_torch.inference.video_predictor import build_sam2_video_predictor
+
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    log("  (a) tools/torch_verify_real_ckpt.py on phase 9's infer_video cases")
+    run_verifier(card, os.path.join(work, "verifier"), entry, name, device)
+    t1 = time.perf_counter()
+    log(f"  (a) took {t1 - t0:.1f} s")
+    pred = build_sam2_video_predictor(name, state_dict=entry["host_sd"], fill_hole_area=8, device=device)
+    out = {"offload": run_offload_study(card, pred, OFFLOAD_FRAMES, OFFLOAD_HW, STREAM_CHUNK)}
+    t2 = time.perf_counter()
+    log(f"  (b) took {t2 - t1:.1f} s")
+    out["mp4"] = run_http_session(card, pred, work, tag="(c)", upload="upload.mp4", writer=write_mp4)
+    del pred
+    t3 = time.perf_counter()
+    log(f"  (c) took {t3 - t2:.1f} s")
+    run_quickstart(card, name, device, QUICKSTART_FRAMES)
+    t4 = time.perf_counter()
+    log(f"  (d) took {t4 - t3:.1f} s")
+    check_fast_fill(card, device, FAST_FILL_SHAPE, FAST_FILL_AREAS)
+    t5 = time.perf_counter()
+    log(f"  (e) took {t5 - t4:.1f} s")
+    run_launcher(card, os.path.join(work, "launcher"), entry, corpus, name, device)
+    log(f"  (f) took {time.perf_counter() - t5:.1f} s")
+    log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -5127,7 +5578,7 @@ def main(argv=None) -> int:
     # 1. the card
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    log(f"[1/14] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[1/15] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     wait_for_memory()
 
     # 2. the build
@@ -5136,7 +5587,7 @@ def main(argv=None) -> int:
     lib = _lib.build(log=msgs.append)
     _lib.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/14] build: {lib.name} in {build_s:.2f} s (set-up)")
+    log(f"[2/15] build: {lib.name} in {build_s:.2f} s (set-up)")
     if msgs:
         (lib.parent / "nvcc.log").write_text("\n".join(msgs))
         regs = ptxas_report(msgs)
@@ -5149,7 +5600,7 @@ def main(argv=None) -> int:
         log("  (library built before this run: no compiler report)")
 
     # 3. each kernel against its plain version
-    log("[3/14] kernels vs plain versions at the main-path shapes (bf16)")
+    log("[3/15] kernels vs plain versions at the main-path shapes (bf16)")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(g)
     check_kernel_grads(g)
@@ -5158,15 +5609,15 @@ def main(argv=None) -> int:
     check_window_attention_v1(g, rows)
 
     # 4-5. the main path: sam2.1_hiera_t512, switches off, then on
-    log("[4/14] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
+    log("[4/15] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
     t512 = run_propagation("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME,
-                           PER_ENCODED_FRAME_FUSED, "main_path", "[5/14]", card, args.profile,
+                           PER_ENCODED_FRAME_FUSED, "main_path", "[5/15]", card, args.profile,
                            precompute=PRECOMPUTE_BATCH)
 
     # 6. EfficientMedSAM-S: the same, through the EfficientTAM entry point
-    log("[6/14] EfficientMedSAM-S: efficientmedsam_s_512, bf16, seeded weights and video")
+    log("[6/15] EfficientMedSAM-S: efficientmedsam_s_512, bf16, seeded weights and video")
     eff = run_propagation("efficientmedsam_s_512", build_efficienttam_video_predictor, PER_ENCODED_FRAME_VIT,
-                          PER_ENCODED_FRAME_VIT_FUSED, "efficienttam_s", "[6/14]", card, args.profile,
+                          PER_ENCODED_FRAME_VIT_FUSED, "efficienttam_s", "[6/15]", card, args.profile,
                           VIT_IOU_MARGIN)
     launches = {k: t512["default"][k] + eff["default"][k] for k in t512["default"]}
     for k in ("cxblock", "qkv_window_attention"):  # the kernels of the fused configuration
@@ -5177,7 +5628,7 @@ def main(argv=None) -> int:
          for cfg in ("default", "fused")}))
 
     # 7. the training path
-    log(f"[7/14] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
+    log(f"[7/15] training path: sam2.1_hiera_t512 train step, bf16 with f32 master weights, "
         f"T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}, seeded weights and batch; without temporal fusion, then with "
         f"{GFTE_FUSION[0]}")
     t0 = time.perf_counter()
@@ -5188,7 +5639,7 @@ def main(argv=None) -> int:
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # 8. the predictor's long-video and editing paths
-    log("[8/14] long video and editing: sam2.1_hiera_t512, bf16, seeded weights; checkpoint, offload and "
+    log("[8/15] long video and editing: sam2.1_hiera_t512, bf16, seeded weights; checkpoint, offload and "
         "streaming, buckets, editing")
     t0 = time.perf_counter()
     run_long_video_and_editing("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME, card,
@@ -5197,31 +5648,31 @@ def main(argv=None) -> int:
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
     # 9. the entry points: the apps, batched serving, the image path
-    log("[9/14] entry points: sam2.1_hiera_t512, bf16, seeded weights; the apps' mains, batched serving, "
+    log("[9/15] entry points: sam2.1_hiera_t512, bf16, seeded weights; the apps' mains, batched serving, "
         "the image predictor and the automatic mask generator")
     entry = run_entry_points(card, os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
                                                 "entry_points"))
 
     # 10. the training entry point: apps/train.py's main, resumed, served, GFTE, one NCCL rank, the native reader
-    log("[10/14] training entry point: apps/train.py at sam2.1_hiera_t512, bf16 with f32 master weights, from a "
+    log("[10/15] training entry point: apps/train.py at sam2.1_hiera_t512, bf16 with f32 master weights, from a "
         "reference-name .pt of the seeded weights, on a seeded NPZ corpus")
     run_training_entry(card, os.path.join(work, "training_entry"))
 
     # 11. the EfficientTAM training half
-    log(f"[11/14] EfficientTAM training: {VIT} train step, bf16 with f32 master weights, T {TRAIN_T}, B 1, "
+    log(f"[11/15] EfficientTAM training: {VIT} train step, bf16 with f32 master weights, T {TRAIN_T}, B 1, "
         f"O {TRAIN_OBJECTS}, seeded weights and batch; the hd-64 kernels at the training shapes, the host gate, a "
         f"frozen encoder, apps/train.py --cfg {VIT} on phase 10's corpus")
     vit_fixed = run_vit_training(card, os.path.join(work, "vit_training"),
                                  os.path.join(work, "training_entry", "corpus"))
 
     # 12. the measurement layer: traces, FLOPs, MFU, the two tools
-    log("[12/14] measurement layer: utils/profiling traces parsed by utils/traceparse, utils/flops, MFU, "
+    log("[12/15] measurement layer: utils/profiling traces parsed by utils/traceparse, utils/flops, MFU, "
         "tools/torch_profile_propagation.py and tools/torch_bench_train_step.py")
     run_measurement(card, os.path.join(work, "measurement"),
                     {"sam2.1_hiera_t512": t512_fixed, VIT: vit_fixed})
 
     # 13. the annotation app over HTTP, two sessions at once, sharded serving, the two serving twins
-    log("[13/14] annotation server, concurrent sessions, sharded serving and the serving twins: "
+    log("[13/15] annotation server, concurrent sessions, sharded serving and the serving twins: "
         "sam2.1_hiera_t512, bf16, phase 9's seeded weights")
     t0 = time.perf_counter()
     run_annotation(card, os.path.join(work, "annotation"), entry)
@@ -5230,7 +5681,15 @@ def main(argv=None) -> int:
     log(f"  (d) took {time.perf_counter() - t1:.1f} s")
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
-    # 14. the kernels line (launches of the dropout kernels from the training
+    # 14. the last user-facing surfaces: the checkpoint verifier, a float16 offload with three objects both
+    # ways, an mp4 upload, the quickstart, the fast hole filler, the training launcher
+    log("[14/15] user-facing surfaces: sam2.1_hiera_t512, bf16, phase 9's seeded weights; the checkpoint verifier, "
+        f"a {OFFLOAD_FRAMES}-frame {OFFLOAD_HW[0]}x{OFFLOAD_HW[1]} study offloaded to a float16 host store and "
+        "streamed with three objects both ways, an mp4 upload, the quickstart, the fast hole filler, the training "
+        "launcher under torchrun")
+    run_surfaces(card, os.path.join(work, "surfaces"), entry, os.path.join(work, "training_entry", "corpus"))
+
+    # 15. the kernels line (launches of the dropout kernels from the training
     # steps, of cxblock and qkv_window_attention from the fused propagation
     # runs of both models, of the others from their default runs, where the
     # unwired window_attention_v1 launches none), the card line, the device line
@@ -5244,7 +5703,7 @@ def main(argv=None) -> int:
             "library_ms": r.library_ms,
         })
     detail = {r.name: r.shapes for r in rows.values()}
-    log("[14/14] per-shape detail " + json.dumps(detail))
+    log("[15/15] per-shape detail " + json.dumps(detail))
     peak = max(PEAK_RESERVED[0], torch.cuda.max_memory_reserved())
     log(f"  the run's peak reserved device memory {peak / 2**30:.3f} GiB (max_memory_reserved; "
         f"{MEMORY_NEED_GIB} GiB asked free at the start)")

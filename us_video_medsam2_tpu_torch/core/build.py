@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 
 import numpy as np
 import torch
@@ -35,11 +36,15 @@ def load_params(cfg: SAM2Config, ckpt_path: str, strict: bool = True) -> dict:
     """The port's state_dict from a checkpoint file (JAX ``build.py::load_params``):
     ``.pt`` / ``.pth`` through the reference-name importer; an ``.npz`` whose
     keys start with ``params/`` through the native reader; any other
-    ``.npz`` as reference names (the test fixtures' form); any other path as
-    a native checkpoint. With ``strict`` the keys and shapes must be the
+    ``.npz`` as reference names (the test fixtures' form); a directory (an
+    Orbax checkpoint) raises; any other path as a native checkpoint. With ``strict`` the keys and shapes must be the
     model's."""
     from us_video_medsam2_tpu_torch.core import checkpoint, import_torch
 
+    if os.path.isdir(ckpt_path):
+        raise NotImplementedError(f"{ckpt_path} is a directory: an Orbax checkpoint, which the port cannot read "
+                                  "(the JAX package's Orbax backend is not ported); pass a .pt / .pth or a "
+                                  "native .npz")
     if ckpt_path.endswith((".pt", ".pth")):
         sd = import_torch.load_torch_checkpoint(ckpt_path, cfg, strict)
     elif ckpt_path.endswith(".npz"):
