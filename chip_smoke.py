@@ -179,23 +179,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    qkv-window-attention and no window-attention launches per encoded frame
    and 2 CXBlock launches per memory encoding; graph against eager in both
    configurations, both held against one host f32 run;
-7. the training path: the ``sam2.1_hiera_t512`` training step at full width
-   (T = 4 frames, B = 1 video, O = 3 objects, ``TrainSimConfig()``, temporal
-   consistency loss 0.5, AdamW with layer decay) in bf16 with f32 master
-   weights on a seeded batch of moving blobs and their masks: one warm-up
-   step, then ``TRAIN_STEPS`` timed steps with finite loss and gradient
-   norm, a non-zero gradient in every parameter group, and exact launch
-   counts (9 window-attention, 12 LayerNorm and 12 MLP per step, 8 dropout
-   flash forward and 8 backward per tracked frame). Then one step with a
-   fixed plan and memory-attention dropout off on the card, once more on the
-   card with both switches set (exact qkv-window-attention and CXBlock
-   counts), and on the host CPU (plain versions, f32): loss and
-   whole-gradient agreement of each card step with the host's. Then the
+7. the training path: ``PLAN_DRAWS`` plans drawn on the card against JAX's
+   probabilities (``PLAN_PROBS``); the ``sam2.1_hiera_t512`` training step at
+   full width (T = 4 frames, B = 1 video, O = 3 objects, ``TrainSimConfig()``,
+   temporal consistency loss 0.5, AdamW with layer decay) in bf16 with f32
+   master weights on a seeded batch of moving blobs and their masks, as one
+   CUDA graph: the first call runs the body eagerly and captures it, then
+   ``TRAIN_STEPS`` timed replays, each with every host sync an error, one
+   capture in all, finite loss and gradient norm, a non-zero gradient in
+   every parameter group, and exact launch counts at replay (9
+   window-attention, 12 LayerNorm and 12 MLP per step, 8 dropout flash
+   forward and 8 backward at each position that runs the tracked branch,
+   every position but the first); from one saved state a replay against an
+   eager run of the body (loss, every gradient and the updated weights, the
+   same bits expected, ``GRAPH_REL_L2_TOL``; the eager run timed beside the
+   replays; the first call's seconds taken apart: eager run, capture
+   set-up, recording, instantiation), the eval step captured once into the
+   train step's memory pool with its launches exact, and with ``--profile``
+   one profiled step of each (device busy and idle share). Then one step
+   (``HOST_T`` frames) with a fixed plan and memory-attention dropout off
+   on the card (the body eagerly), once more on the card with both switches
+   set through the captured step (one capture, one replay from the same
+   state with no host sync, held against the first call's eager run as
+   above, exact qkv-window-attention and CXBlock counts at replay), and on
+   the host CPU (plain versions, f32): loss and whole-gradient agreement of
+   each card step with the host's. Then the
    same step with temporal fusion ``GFTE_FUSION`` (``tools/
    bench_train_step.py``'s default: GFTE over the top 3 FPN levels at 256
    channels; the same seeded weights, the fusion's constants at their JAX
-   initial values): warm-up and timed steps with a non-zero gradient in the
-   fusion group, the BatchNorm buffers bit-identical after the steps and
+   initial values): the capture, the timed replays and the captured-against-
+   eager check as above (its eager timing: ``tools/torch_bench_train_step.py
+   --fusion gfte``), with the same step seeds (the same plans), a non-zero
+   gradient in the fusion group, the BatchNorm buffers bit-identical after
+   the steps and
    exactly the launches of the step without fusion (the fusion is plain
    PyTorch and launches none of the port's kernels); ms/step and peak memory
    beside the step without fusion; the fixed-plan step on the card against
@@ -271,7 +287,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    consistency loss): two finite records in ``train_stats.json``, every
    file of the out-dir, each step exactly phase 7's launches (9 / 12 / 12,
    8 + 8 dropout-flash a tracked frame), ms a step with its data and step
-   ms, peak device memory, the checkpoint writes' seconds; (b) ``main``
+   ms, peak device memory allocated and reserved, the checkpoint writes'
+   seconds; (b) ``main``
    again with three epochs on the same out-dir: it resumes at epoch 2 with
    the saved step and best, the restored parameters and AdamW moments
    bit-identical to the file, epoch 2's batches by hash those of a fresh
@@ -292,13 +309,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    map padded to 42x42), the hd-64 kernel there held against its plain
    version and its gradient (``_lib.with_plain_grad``, no launch in the
    backward) against autograd of the plain version, ``layer_norm`` and
-   ``ln_mlp_residual`` at D 384 the same way; phase 7's warm-up and
-   TRAIN_STEPS timed steps (median ms a step, peak reserved memory, each
+   ``ln_mlp_residual`` at D 384 the same way; phase 7's captured step, its
+   checks and its timed eager run (the eval step is phase 7's; median ms a
+   step, peak reserved memory, each
    step's launches exact: 8 window / 12 LN / 12 MLP, 8 + 8 dropout-flash a
-   tracked frame) and one traced step (device ms); the fixed-plan step on
+   tracked position) and one traced replay (device ms and idle share); the
+   fixed-plan step on
    the card (traced) against the host (its FLOPs counted) at phase 7's
-   gate; ``freeze_patterns=("*image_encoder*",)`` for FREEZE_STEPS steps:
-   the encoder bit-identical, every other group moved; ``apps/train.py
+   gate; ``freeze_patterns=("*image_encoder*",)`` for FREEZE_STEPS steps
+   of the captured step (one capture, replays with no host sync): the
+   encoder bit-identical, every other group moved; ``apps/train.py
    --cfg efficientmedsam_s_512`` for one epoch on phase 10's corpus from a
    reference-name ``.pt``, each step's launches exact, its
    ``checkpoint.npz`` served through ``build_efficienttam_video_predictor``
@@ -527,7 +547,7 @@ PER_MEMORY_ENCODING = {"cxblock": 2}  # fuser_layers CXBlocks
 # the training path
 TRAIN_T = 4
 TRAIN_OBJECTS = 3
-TRAIN_STEPS = 5  # timed steps after one warm-up step
+TRAIN_STEPS = 5  # timed replays of the captured step after its capture
 HOST_T = 4  # frames of the card-vs-host step
 DROPOUT = 0.1  # memory attention (MemoryAttentionConfig.dropout)
 PER_TRAIN_STEP = {"window_attention": 9, "layer_norm": 12, "ln_mlp_residual": 12}  # one batched encoder call
@@ -553,6 +573,12 @@ KERNEL_SYMBOLS = {
 TRACE_ATTEMPTS = 3
 BUSY_REL_TOL = 5e-3  # the parsed trace's busy time against key_averages()' on the same profile
 PER_TRACKED_TRAIN_FRAME = {"flash_dropout_fwd": 8, "flash_dropout_bwd": 8}
+# the device plan sampler: plans drawn, and JAX's probabilities for
+# TrainSimConfig() at T 4 (point input 0.5, always a box: mode box or mask;
+# n_init uniform in {1, 2}; with a box the corrected count is n_init plus a
+# uniform draw of [0, 2 - n_init] more, none without)
+PLAN_DRAWS = 1000
+PLAN_PROBS = {"mode": {1: 0.5, 2: 0.5}, "n_init": {1: 0.5, 2: 0.5}, "corrected": {0: 0.5, 1: 0.125, 2: 0.375}}
 PARAM_GROUPS = {"trunk": "image_encoder.trunk.", "neck": "image_encoder.neck.",
                 "memory attention": "memory_attention.", "memory encoder": "memory_encoder.",
                 "prompt encoder": "sam_prompt_encoder.", "mask decoder": "sam_mask_decoder.",
@@ -576,11 +602,11 @@ LAUNCHER_TIMEOUT_S = 600
 
 
 # device memory the whole run needs free when it starts: its peak reserved
-# (phase 11 prints it; 11.344 GiB on an H100) with room for what the CUDA
-# context, NCCL and the kernels' library hold beside PyTorch's allocator; how
-# long, and how often, to wait for it (the run takes 7-10 minutes of the
-# 20 it is given)
-MEMORY_NEED_GIB = 16
+# (phase 11 prints it; 32.604 GiB on an H100 since the training steps' CUDA
+# graphs keep their pools) with room for what the CUDA context, NCCL and the
+# kernels' library hold beside PyTorch's allocator; how long, and how often,
+# to wait for it (the run takes 15-17 minutes of the 20 it is given)
+MEMORY_NEED_GIB = 40
 MEMORY_WAIT_S = 120
 MEMORY_POLL_S = 5
 
@@ -1908,7 +1934,7 @@ def check_dropout_kernels(g, rows) -> None:
     def rn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
-    seed = 1234
+    seed = torch.full((), 1234, dtype=torch.int32, device=dev)  # the training step's form: an int32 on the card
     mask = train_key_mask(dev)
     lk_cross = mask.shape[1]
     log(f"flash_dropout (D 256, rate {DROPOUT} and 0): memory attention of the training path, "
@@ -2659,7 +2685,8 @@ def run_training(profile_dir=None, out_dir=None, measure_dir=None):
     step's measures or None)."""
     import torch
 
-    torch.manual_seed(SEED)  # the residual dropouts draw from torch's global generator
+    check_plan_frequencies()
+    torch.manual_seed(SEED)
     model = build_train_model()
     host_sd = {k: v.clone() for k, v in model.state_dict().items()}
     size = model.cfg.image_size
@@ -2675,7 +2702,8 @@ def run_training(profile_dir=None, out_dir=None, measure_dir=None):
     torch.manual_seed(SEED)
     model = build_train_model(fusion=GFTE_FUSION)
     gfte_sd = {k: v.clone() for k, v in model.state_dict().items()}
-    _, gwalls, gpeak, _, _ = timed_train_steps(model, "GFTE", profile_dir, "train_step_gfte", plans)
+    _, gwalls, gpeak, _, _ = timed_train_steps(model, "GFTE", profile_dir, "train_step_gfte", plans,
+                                               eager_and_eval=False)
     del model
     log(f"  GFTE step: median {1e3 * statistics.median(gwalls):.2f} ms/step, peak {gpeak / 2**30:.3f} GiB; "
         f"without fusion: median {1e3 * statistics.median(walls):.2f} ms/step, peak {peak / 2**30:.3f} GiB; "
@@ -2688,65 +2716,226 @@ def run_training(profile_dir=None, out_dir=None, measure_dir=None):
     return total, measures
 
 
-def timed_train_steps(model, label, profile_dir=None, profile_label="train_step", plans=None,
-                      per_step=PER_TRAIN_STEP, trace_dir=None):
-    """One warm-up step and TRAIN_STEPS timed steps of ``model`` on the card
-    (bf16 compute, f32 master weights): finite loss and gradient norm, a
-    non-zero gradient in every parameter group, exact launch counts, the
-    BatchNorm buffers bit-identical after the steps. ``plans``, the step
-    generator's state before each step (and the profiled one) of an earlier
-    run, gives each step that run's plan: the plan is the first draw of a
-    step, the fusion's come after it. ``per_step``: the trunk kernels'
-    launches a step. With ``trace_dir``, one more step runs under
-    ``utils/profiling.trace`` into that directory, its trace held against
-    the launch counters (``traced_call``; a retry replays the step's plan).
-    Returns (launches of the timed steps, their walls, peak device memory,
-    the generator's states, and the traced step's device ms, launches and
-    tracked frames or None)."""
+def step_expected(counts: dict, per_step: dict, frames: int, per_tracked=PER_TRACKED_TRAIN_FRAME) -> dict:
+    """A step's exact launches: the trunk kernels' ``per_step`` and
+    ``per_tracked`` for each position that runs the tracked branch, every
+    position but the first (positions 1..n_init_max-1 run it under a
+    selection beside the initial branch, whatever the plan)."""
+    expected = {k: 0 for k in counts}
+    expected.update(per_step)
+    expected.update({k: v * (frames - 1) for k, v in per_tracked.items()})
+    return expected
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """Every host sync inside the block is an error (as ``window_sync_errors``)."""
     import torch
 
-    from us_video_medsam2_tpu_torch.training.train_step import create_train_state, make_train_step
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
 
+
+def plan_text(plan) -> str:
+    return (f"plan mode {('point', 'box', 'mask')[int(plan.mode)]}, n_init {int(plan.n_init)}, corrected "
+            f"{int(plan.should_correct.sum())}")
+
+
+def step_seeds(n: int) -> list:
+    """The seeds of a run's steps (each a plan; the same seeds give the same plans)."""
+    return [SEED * 1_000 + i for i in range(n)]
+
+
+def step_result(m, state) -> tuple:
+    """A step's loss, every gradient and the updated weights, each one f32
+    vector copied out of the step's memory."""
+    import torch
+
+    return (m["core_loss"].detach().float().reshape(1).clone(),
+            torch.cat([g.float().reshape(-1) for g in m["grads"].values()]),
+            torch.cat([p.detach().float().reshape(-1) for p in state.model.parameters()]))
+
+
+def hold_same_step(label, seed, captured, eager) -> None:
+    """``step_result`` of a replay against that of an eager run of the
+    body from the same state and seed: same bits expected, held at
+    GRAPH_REL_L2_TOL with max |d| printed."""
+    import torch
+
+    worst = 0.0
+    parts = []
+    for what, c, e in zip(("loss", "gradients", "updated weights"), captured, eager):
+        rel = float((c - e).norm() / e.norm().clamp_min(1e-30))
+        worst = max(worst, rel)
+        parts.append(f"{what} rel-L2 {rel:.3e}, max |d| {float((c - e).abs().max()):.3e}"
+                     f"{' (same bits)' if torch.equal(c, e) else ''}")
+    log(f"  {label}: captured vs eager from one state (seed {seed}): {'; '.join(parts)} "
+        f"(tol {GRAPH_REL_L2_TOL}) {'ok' if worst <= GRAPH_REL_L2_TOL else 'FAIL'}")
+    if worst > GRAPH_REL_L2_TOL:
+        raise AssertionError(f"{label}: the captured step and its eager body disagree")
+
+
+def hold_captured_against_eager(step, state, batch, seed, label) -> float:
+    """From one saved state (weights, moments, counts), one replay of the
+    captured step and one eager run of its body with the same seed
+    (``hold_same_step``). The state is the eager step's after it (the same
+    as the captured step's). Returns the eager run's seconds (host clock
+    around it and a synchronize)."""
+    import torch
+
+    opt = state.optimizer
+    tensors = list(state.model.parameters()) + opt.state_tensors()
+    saved = [t.detach().clone() for t in tensors]
+    res = {}
+    for how in ("captured", "eager"):
+        with torch.no_grad():
+            for t, v in zip(tensors, saved):
+                t.copy_(v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = (step if how == "captured" else step.eager)(state, batch, seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res[how] = step_result(m, state)
+        state.step -= 1
+    state.step += 1
+    hold_same_step(label, seed, res["captured"], res["eager"])
+    return wall
+
+
+def captured_fixed_step(state, cfg, batch, label):
+    """A fixed-plan step through the captured step (``make_train_step``):
+    the first call runs the body eagerly from ``state`` and captures it;
+    the state is put back and one replay, every host sync an error, takes
+    the same step, with a non-zero gradient in every parameter group. The
+    replay is held against the first call's eager run (``hold_same_step``).
+    Returns the replay's metrics and launches (counted at replay)."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.training.train_step import make_train_step
+
+    step = make_train_step(cfg)
+    tensors = list(state.model.parameters()) + state.optimizer.state_tensors()
+    saved = [t.detach().clone() for t in tensors]
+    eager = step_result(step(state, batch, SEED), state)
+    with torch.no_grad():
+        for t, v in zip(tensors, saved):
+            t.copy_(v)
+    state.step -= 1
+    with sync_errors():
+        m, counts = read_counts(lambda: step(state, batch, SEED))
+    torch.cuda.synchronize()
+    if step.captures != 1:
+        raise AssertionError(f"{label}: {step.captures} captures, expected 1 (and none after the first)")
+    norms = group_norms(m["grads"])
+    bad = {k: v for k, v in norms.items() if not (v > 0 and v < float("inf"))}
+    if bad:
+        raise AssertionError(f"{label}: zero or non-finite gradient in parameter groups {bad}")
+    log(f"  {label}: 1 capture ({capture_text(step.captured.last)}), then one replay with no host sync; "
+        f"gradient norm by parameter group { {k: round(v, 6) for k, v in norms.items()} }")
+    hold_same_step(label, SEED, step_result(m, state), eager)
+    return m, counts
+
+
+def capture_text(g) -> str:
+    """A step graph's first call, taken apart: the eager run, the capture's
+    set-up, the body recorded, the graph instantiated; its pool."""
+    p = g.parts_s
+    return (f"first call {g.capture_s:.2f} s = eager run {g.warm_up_s:.2f} + capture set-up {p['set_up']:.2f} + "
+            f"recording {p['record']:.2f} + end and instantiation {p['instantiate']:.2f}; graph pool "
+            f"{g.pool_bytes / 2**20:.1f} MiB")
+
+
+def check_plan_frequencies(draws: int = PLAN_DRAWS) -> None:
+    """``draws`` plans of ``TrainSimConfig()`` drawn on the card
+    (``sample_plan``) against JAX's probabilities (``PLAN_PROBS``, written
+    here: the card has no JAX): each frequency within 5 binomial standard
+    errors."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.training.train_model import TrainSimConfig, sample_plan
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    got = {k: {} for k in PLAN_PROBS}
+    for _ in range(draws):
+        p = sample_plan(gen, TrainSimConfig(), TRAIN_T, True)
+        for k, v in (("mode", p.mode), ("n_init", p.n_init), ("corrected", p.should_correct.sum())):
+            got[k][int(v)] = got[k].get(int(v), 0) + 1
+    bad = []
+    for k, probs in PLAN_PROBS.items():
+        for v, pr in probs.items():
+            f = got[k].get(v, 0) / draws
+            if abs(f - pr) > 5 * (pr * (1 - pr) / draws) ** 0.5 + 1e-9:
+                bad.append((k, v, f, pr))
+        bad += [(k, v, n / draws, 0.0) for v, n in got[k].items() if v not in probs]
+    log(f"  {draws} plans drawn on the card: {({k: dict(sorted(v.items())) for k, v in got.items()})} against "
+        f"probabilities {PLAN_PROBS} {'ok' if not bad else 'FAIL'}")
+    if bad:
+        raise AssertionError(f"plan frequencies off: {bad}")
+
+
+def timed_train_steps(model, label, profile_dir=None, profile_label="train_step", seeds=None,
+                      per_step=PER_TRAIN_STEP, trace_dir=None, eager_and_eval=True, eval_step=None):
+    """The captured step of ``model`` on the card (bf16 compute, f32 master
+    weights): the first call runs the body eagerly and captures it (one
+    capture, none after it), then TRAIN_STEPS timed replays, each with every
+    host sync an error, finite loss and gradient norm, a non-zero gradient
+    in every parameter group and exact launch counts (``step_expected``,
+    counted at replay); the BatchNorm buffers bit-identical after the steps.
+    ``seeds``: the step seeds of an earlier run, whose plans the steps then
+    draw (a step's plan is its first draw). Then the captured step against
+    its eager body (``hold_captured_against_eager``, the eager run timed and
+    printed with ``eager_and_eval``); with ``eval_step`` (``eager_and_eval``
+    by default) the eval step: captured once, none after, its launches
+    exact. With
+    ``profile_dir``, one captured and one eager step run under torch.profiler
+    (device busy, idle share); with ``trace_dir``, one captured step under
+    ``utils/profiling.trace``, held against the launch counters
+    (``traced_call``; the eager step's device time is phase 12's
+    ``tools/torch_bench_train_step.py``'s). Returns (launches of the timed
+    steps, their walls, peak device memory, the seeds, and the traced
+    captured step's device ms, launches and tracked positions or None)."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.training.train_step import create_train_state, make_eval_step, make_train_step
+
+    eval_step = eager_and_eval if eval_step is None else eval_step
     cfg = train_config()
     bufs = {n: b.clone() for n, b in model.named_buffers()}
     state = create_train_state(model, cfg)  # the card, bf16 compute, f32 master weights
     size = model.cfg.image_size
     batch = make_train_batch(TRAIN_T, size, "cuda")
     step = make_train_step(cfg)
-    gen = torch.Generator().manual_seed(SEED)
+    seeds = seeds or step_seeds(TRAIN_STEPS + 4)
 
-    def timed_step():
+    def timed(fn, seed, checked):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = step(state, batch, gen)
+        with sync_errors() if checked else contextlib.nullcontext():
+            m = fn(state, batch, seed)
         torch.cuda.synchronize()
         return m, time.perf_counter() - t0
 
     total = {k: 0 for k in counters()}
-    walls, states = [], []
-
-    def next_plan(i):
-        if plans is not None:
-            gen.set_state(plans[i])
-        states.append(gen.get_state())
-
-    for i in range(TRAIN_STEPS + 1):  # step 0 is the warm-up
+    walls = []
+    for i in range(TRAIN_STEPS + 1):  # step 0 runs the body eagerly and captures it
         if i == 1:
             reset_peak_memory()
-        next_plan(i)
-        (m, wall), counts = read_counts(timed_step)
-        plan = m["plan"]
-        tracked = TRAIN_T - plan.n_init
-        expected = {k: 0 for k in counts}
-        expected.update(per_step)
-        expected.update({k: v * tracked for k, v in PER_TRACKED_TRAIN_FRAME.items()})
+        (m, wall), counts = read_counts(lambda: timed(step, seeds[i], i > 0))
+        expected = step_expected(counts, per_step, TRAIN_T)
         loss, gnorm = float(m["core_loss"]), float(m["grad_norm"])
         norms = group_norms(m["grads"])
-        log(f"  step {i}{' (warm-up)' if i == 0 else ''}: core_loss {loss:.6f}, grad_norm {gnorm:.6f}, "
-            f"{1e3 * wall:.2f} ms; plan mode {('point', 'box', 'mask')[plan.mode]}, n_init {plan.n_init}, "
-            f"tracked frames {tracked}; launches {counts}")
+        log(f"  step {i}{' (eager run and capture)' if i == 0 else ' (replay, no host sync)'}: core_loss "
+            f"{loss:.6f}, grad_norm {gnorm:.6f}, {1e3 * wall:.2f} ms; {plan_text(m['plan'])}; captures "
+            f"{step.captures}; launches {counts}")
         if counts != expected:
             raise AssertionError(f"launch counts {counts} != {expected}")
+        if step.captures != 1:
+            raise AssertionError(f"step {i}: {step.captures} captures, expected 1 (and none after the first)")
         if not (torch.isfinite(torch.tensor([loss, gnorm])).all() and gnorm > 0):
             raise AssertionError(f"step {i}: core_loss {loss} or grad_norm {gnorm} not finite and positive")
         bad = {g: v for g, v in norms.items() if not (v > 0 and v < float("inf"))}
@@ -2756,42 +2945,68 @@ def timed_train_steps(model, label, profile_dir=None, profile_label="train_step"
             walls.append(wall)
             total = {k: total[k] + counts[k] for k in total}
     peak = torch.cuda.max_memory_allocated()
+    graph = step.captured.last
     log(f"  gradient norm by parameter group (last step): { {g: round(v, 6) for g, v in norms.items()} }")
-    log(f"  {label}: {TRAIN_STEPS} steps (T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}): median "
+    log(f"  {label}: {TRAIN_STEPS} captured steps (T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}): median "
         f"{1e3 * statistics.median(walls):.2f} ms/step (host clock around step + synchronize; "
-        f"steps {[round(1e3 * w, 2) for w in walls]}), "
+        f"steps {[round(1e3 * w, 2) for w in walls]}); {capture_text(graph)}; "
         f"peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
+    ewalls = []
+    (ewall,), counts = read_counts(lambda: (hold_captured_against_eager(step, state, batch, seeds[TRAIN_STEPS + 1],
+                                                                        label),))
+    if counts != {k: 2 * v for k, v in step_expected(counts, per_step, TRAIN_T).items()}:
+        raise AssertionError(f"{label}: a replay and an eager step launched {counts}")
+    if eager_and_eval:
+        ewalls.append(ewall)
+        log(f"  {label}: the eager body {1e3 * ewall:.2f} ms a step against the replays' median "
+            f"{1e3 * statistics.median(walls):.2f} ms; {card_line()}")
+    if step.captures != 1:
+        raise AssertionError(f"{step.captures} captures after the eager steps")
     changed = [n for n, b in model.named_buffers() if not torch.equal(b.cpu(), bufs[n])]
     if changed:
         raise AssertionError(f"{label}: the training steps changed the buffers {changed[:4]}")
     if bufs:
-        log(f"  {len(bufs)} BatchNorm buffers bit-identical after {TRAIN_STEPS + 1} steps")
-    if profile_dir:
-        def profiled():
-            p = step(state, batch, gen)["plan"]
-            log(f"  profiled step: plan mode {('point', 'box', 'mask')[p.mode]}, n_init {p.n_init}")
+        log(f"  {len(bufs)} BatchNorm buffers bit-identical after {TRAIN_STEPS + 3} steps")
 
-        next_plan(TRAIN_STEPS + 1)
-        profile_run(profiled, profile_label, profile_dir, statistics.median(walls), host_ops=20)
+    ev = make_eval_step(cfg)
+    for i in range(3 if eval_step else 0):
+        with sync_errors() if i > 0 else contextlib.nullcontext():
+            losses, counts = read_counts(lambda: ev(state.model, batch, seeds[i]))
+        want = step_expected(counts, per_step, TRAIN_T, PER_TRACKED_FRAME)
+        core = float(losses["core_loss"])
+        if counts != want or ev.captures != 1 or not abs(core) < float("inf"):
+            raise AssertionError(f"eval step {i}: launches {counts} (want {want}), {ev.captures} captures, "
+                                 f"core_loss {core}")
+    if eval_step:
+        log(f"  {label}: eval step: {ev.captures} capture in 3 calls (the replays without a host sync), launches "
+            f"{ {k: v for k, v in want.items() if v} } a call; core_loss {core:.6f}; {capture_text(ev.captured.last)} "
+            f"(the train step's pool shared)")
+    del ev
+
     traced = None
+    if profile_dir and ewalls:
+        idle = {}
+        for how, fn, w in (("captured", step, walls), ("eager", step.eager, ewalls)):
+            def profiled(fn=fn, how=how):
+                m = fn(state, batch, seeds[TRAIN_STEPS + 2])
+                log(f"  profiled {how} step: {plan_text(m['plan'])}")
+
+            idle[how] = profile_run(profiled, f"{profile_label}_{how}", profile_dir, statistics.median(w),
+                                    host_ops=20 if how == "eager" else 0)
+        busy = {h: (1 - idle[h]) * 1e3 * statistics.median(w) for h, w in (("captured", walls), ("eager", ewalls))}
+        log(f"  {label}: device busy {busy['captured']:.2f} ms captured, {busy['eager']:.2f} ms eager (the same "
+            f"body and selections: the graph changes the launches, not the work); idle share "
+            f"{idle['captured']:.3f} captured, {idle['eager']:.3f} eager; {card_line()}")
     if trace_dir is not None:
-        next_plan(TRAIN_STEPS + 1 + bool(profile_dir))
-        plan_state = gen.get_state()
-
-        def traced_step():
-            gen.set_state(plan_state)  # every attempt draws the same plan
-            return step(state, batch, gen)
-
-        m, counts, parsed = traced_call(traced_step, f"{label} step", trace_dir, model, check_busy=False)
-        tracked = TRAIN_T - m["plan"].n_init
-        expected = {k: 0 for k in counts}
-        expected.update(per_step)
-        expected.update({k: v * tracked for k, v in PER_TRACKED_TRAIN_FRAME.items()})
-        check_counts(f"{label}, the traced step", counts, expected)
-        traced = {"device_ms": sum(parsed[0].values()) / 1e3, "launches": counts, "tracked": tracked}
-        log(f"  {label}: device {traced['device_ms']:.2f} ms in the traced step (tracked frames {tracked}) "
-            f"against a median {1e3 * statistics.median(walls):.2f} ms a step on the host clock; {card_line()}")
-    return total, walls, peak, states, traced
+        m, counts, parsed = traced_call(lambda: step(state, batch, seeds[TRAIN_STEPS + 3]), f"{label} captured step",
+                                        trace_dir, model, check_busy=False)
+        check_counts(f"{label}, the traced captured step", counts, step_expected(counts, per_step, TRAIN_T))
+        traced = {"device_ms": sum(parsed[0].values()) / 1e3, "launches": counts, "tracked": TRAIN_T - 1}
+        ms = statistics.median(walls)
+        log(f"  {label}: device {traced['device_ms']:.2f} ms in the traced replay; idle share "
+            f"{1 - traced['device_ms'] / (1e3 * ms):.3f} against a median {1e3 * ms:.2f} ms a step on the host clock "
+            f"(the eager body {1e3 * statistics.median(ewalls):.2f} ms); {card_line()}")
+    return total, walls, peak, seeds, traced
 
 
 def fixed_plan_steps(host_sd, size, runs, fusion=None, what="", name="sam2.1_hiera_t512", per_step=PER_TRAIN_STEP,
@@ -2799,7 +3014,12 @@ def fixed_plan_steps(host_sd, size, runs, fusion=None, what="", name="sam2.1_hie
     """One step with a fixed plan and no memory-attention dropout for each of
     ``runs`` ((label, device, dtype); "card, fused" with both fused kernels
     switched on: the same function), each card step's loss and gradient
-    held against the host's. With ``measure_dir``, the "card" step runs
+    held against the host's. "card, fused" runs through the captured step
+    (``captured_fixed_step``: one capture, one replay with no host sync held
+    against the eager run, its qkv and CXBlock launches counted at replay),
+    the others are the step's body run eagerly (``TrainStep.eager``;
+    ``timed_train_steps`` holds the default captured step to its eager
+    body's bits). With ``measure_dir``, the "card" step runs
     under ``utils/profiling.trace`` into that directory, held against the
     launch counters (``per_step``, the flash kernel 8 a tracked frame; the
     gate holds the first traced call, taken from the seeded weights), and
@@ -2821,11 +3041,13 @@ def fixed_plan_steps(host_sd, size, runs, fusion=None, what="", name="sam2.1_hie
                                     device=dev, dtype=dtype)
             t0 = time.perf_counter()
 
-            def run():
-                return make_train_step(fixed)(st, make_train_batch(HOST_T, size, dev),
-                                              torch.Generator().manual_seed(SEED))
+            def run():  # the body eagerly (timed_train_steps holds the default step's capture to its bits)
+                return make_train_step(fixed).eager(st, make_train_batch(HOST_T, size, dev), SEED)
 
-            if measure_dir is not None and label == "card":
+            if label == "card, fused":
+                m, counts = captured_fixed_step(st, fixed, make_train_batch(HOST_T, size, dev),
+                                                f"{what}fixed-plan step, card, fused")
+            elif measure_dir is not None and label == "card":
                 m, counts, parsed = traced_call(run, f"{what}fixed-plan step, card", measure_dir, st.model,
                                                 check_busy=False)
                 want = {k: 0 for k in counts}
@@ -2846,7 +3068,7 @@ def fixed_plan_steps(host_sd, size, runs, fusion=None, what="", name="sam2.1_hie
             # one batched encoder call; every frame's memory encoded once
             want = {"qkv_window_attention": 9, "window_attention": 0, "cxblock": 2 * HOST_T}
             got = {k: counts[k] for k in want}
-            log(f"  fused step launches {got}, expected {want}")
+            log(f"  fused step launches at replay {got}, expected {want}")
             if got != want:
                 raise AssertionError(f"fused training step: launch counts {got} != {want}")
         del st, m
@@ -4179,9 +4401,9 @@ class StepRecorder:
         def make_train_step(cfg):
             step = orig(cfg)
 
-            def counted(state, batch, gen):
-                m, counts = read_counts(lambda: step(state, batch, gen))
-                steps.append((m["plan"], counts, float(m["core_loss"])))
+            def counted(state, batch, seed):
+                m, counts = read_counts(lambda: step(state, batch, seed))
+                steps.append((int(m["plan"].n_init), counts, float(m["core_loss"])))
                 return m
 
             return counted
@@ -4196,20 +4418,16 @@ class StepRecorder:
 
     def check(self, what, on_card=True, tracked_frames=TRAIN_T, per_step=PER_TRAIN_STEP) -> None:
         """Every step's launches exactly phase 7's (``per_step`` the trunk
-        kernels' of the preset; on the card: the host's plain versions count
-        nothing); finite losses."""
-        for i, (plan, counts, loss) in enumerate(self.steps):
-            expected = {k: 0 for k in counts}
-            if on_card:
-                expected.update(per_step)
-                expected.update({k: v * (tracked_frames - plan.n_init)
-                                 for k, v in PER_TRACKED_TRAIN_FRAME.items()})
+        kernels' of the preset, ``step_expected``; on the card: the host's
+        plain versions count nothing); finite losses."""
+        for i, (_, counts, loss) in enumerate(self.steps):
+            expected = step_expected(counts, per_step, tracked_frames) if on_card else {k: 0 for k in counts}
             if counts != expected:
                 raise AssertionError(f"{what} step {i}: launch counts {counts} != {expected}")
             if not loss == loss or abs(loss) == float("inf"):
                 raise AssertionError(f"{what} step {i}: core_loss {loss}")
         log(f"  {what}: {len(self.steps)} steps, each with exactly {'phase 7' if on_card else 'the host'}'s launches "
-            f"(n_init by step {[p.n_init for p, _, _ in self.steps]}); losses "
+            f"(n_init by step {[n for n, _, _ in self.steps]}); losses "
             f"{[round(l, 4) for _, _, l in self.steps]}")
 
 
@@ -4281,12 +4499,14 @@ def run_training_entry(card, work, name="sam2.1_hiera_t512", device="cuda", hw=T
     log(f"  (a) train: {' '.join(te_args('O', 2))}")
     sync(device)
     if on_card:
+        torch.cuda.empty_cache()  # the peak reserved is then this run's own
         reset_peak_memory()
     t0 = time.perf_counter()
     with StepRecorder() as rec:
         tr = train.main(te_args(out, 2))
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() if on_card else 0
+    peak_reserved = torch.cuda.max_memory_reserved() if on_card else 0
     rec.check("(a)", on_card)
     with open(os.path.join(out, "train_stats.json")) as f:
         records = [json.loads(line) for line in f]
@@ -4305,7 +4525,7 @@ def run_training_entry(card, work, name="sam2.1_hiera_t512", device="cuda", hw=T
     log(f"  (a) {len(tr.step_times)} steps in {secs:.1f} s: median {total_ms:.2f} ms a step (data "
         f"{statistics.median(data_ms):.2f} ms, step {statistics.median(step_ms):.2f} ms; by step data "
         f"{[round(x, 1) for x in data_ms]}, step {[round(x, 1) for x in step_ms]}), peak device memory "
-        f"{peak / 2**30:.3f} GiB, checkpoint writes {[round(x, 3) for x in tr.save_times]} s ({mib:.1f} MiB); "
+        f"{peak / 2**30:.3f} GiB (max_memory_allocated), {peak_reserved / 2**30:.3f} GiB reserved, checkpoint writes {[round(x, 3) for x in tr.save_times]} s ({mib:.1f} MiB); "
         f"train_stats {[round(r['Losses/train_all_loss'], 4) for r in records]}; on {card}")
     final_sd = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
     del tr
@@ -4507,8 +4727,9 @@ def check_vit_training_kernels(g, model, batch) -> None:
 
 
 def check_freeze(host_sd) -> None:
-    """EfficientTAMTrain's freeze_image_encoder: FREEZE_STEPS steps with
-    ``freeze_patterns=("*image_encoder*",)``; every image-encoder parameter
+    """EfficientTAMTrain's freeze_image_encoder: FREEZE_STEPS steps of the
+    captured step with ``freeze_patterns=("*image_encoder*",)`` (one
+    capture, then replays with no host sync); every image-encoder parameter
     bit-identical after them, every other parameter group moved."""
     import dataclasses
 
@@ -4522,16 +4743,20 @@ def check_freeze(host_sd) -> None:
     state = create_train_state(build_train_model(host_sd, name=VIT), frozen)
     batch = make_train_batch(TRAIN_T, state.model.cfg.image_size, "cuda")
     before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
-    step, gen = make_train_step(frozen), torch.Generator().manual_seed(SEED)
-    for _ in range(FREEZE_STEPS):
-        m = step(state, batch, gen)
+    step = make_train_step(frozen)
+    for i, seed in enumerate(step_seeds(FREEZE_STEPS)):
+        with sync_errors() if i > 0 else contextlib.nullcontext():
+            m = step(state, batch, seed)
     torch.cuda.synchronize()
+    if step.captures != 1:
+        raise AssertionError(f"freeze: {step.captures} captures in {FREEZE_STEPS} steps, expected 1")
     encoder = {n for n in before if n.startswith("image_encoder.")}
     others = set(before) - encoder
     moved = {n for n, p in state.model.named_parameters() if not torch.equal(p, before[n])}
     still = [g for g, pre in PARAM_GROUPS.items() if any(n.startswith(pre) for n in others)
              and not any(n.startswith(pre) for n in moved)]
-    log(f"  freeze_patterns ('*image_encoder*',), {FREEZE_STEPS} steps: {len(encoder)} image-encoder parameters, "
+    log(f"  freeze_patterns ('*image_encoder*',), {FREEZE_STEPS} captured steps (1 capture): {len(encoder)} "
+        f"image-encoder parameters, "
         f"{len(moved & encoder)} moved; {len(moved)} of {len(others)} others moved; core_loss "
         f"{float(m['core_loss']):.6f}")
     if moved & encoder or not encoder or still or len(moved) < 0.9 * len(others):
@@ -4571,6 +4796,7 @@ def run_vit_training(card, work, corpus) -> dict:
 
     reset_peak_memory()
     _, walls, peak, _, traced = timed_train_steps(model, "EfficientMedSAM-S", per_step=PER_TRAIN_STEP_VIT,
+                                                  eval_step=False,
                                                   trace_dir=os.path.join(work, "trace_step"))
     reserved = torch.cuda.max_memory_reserved()
     log(f"  EfficientMedSAM-S step: median {1e3 * statistics.median(walls):.2f} ms/step over {TRAIN_STEPS} steps, "
@@ -4722,7 +4948,9 @@ def run_measurement(card, work, train_measures) -> None:
     bench = load_tool("torch_bench_train_step")
     rec = bench.main(["--steps", "1", "--frames", "2", "--cfg", "sam2.1_hiera_t512", "--fusion", "none"])
     log(f"  tools/torch_bench_train_step.py --steps 1 --frames 2: {json.dumps(rec)} ({time.perf_counter() - t0:.1f} s)")
-    if not (rec["device_ms_per_step"] and rec["flops_per_step_gflop"] and 0 < rec["mfu_pct"] <= 100):
+    cap = rec["captured"]
+    if not (cap["device_ms_per_step"] and rec["eager"]["device_ms_per_step"] and cap["captures"] == 1
+            and rec["flops_per_step_gflop"] and 0 < rec["mfu_pct"] <= 100):
         raise AssertionError(f"the train-step tool's record: {rec}")
     log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
@@ -5427,10 +5655,10 @@ if _out and "LOCAL_RANK" in os.environ:  # a torchrun worker, not the agent
     def make_train_step(cfg):
         step = _orig(cfg)
 
-        def counted(state, batch, gen):
+        def counted(state, batch, seed):
             _lib.zero_launches()
-            m = step(state, batch, gen)
-            _steps.append({"n_init": m["plan"].n_init, "launches": _lib.launch_counts(),
+            m = step(state, batch, seed)
+            _steps.append({"n_init": int(m["plan"].n_init), "launches": _lib.launch_counts(),
                            "core_loss": float(m["core_loss"])})
             return m
 
@@ -5456,7 +5684,6 @@ def run_launcher(card, work, entry, corpus, name="sam2.1_hiera_t512", device="cu
     10's exactly (on the card); its ``checkpoint.npz`` loads into the
     predictor, whose 16-frame run has phase 4's launches."""
     import shutil
-    import types
 
     import numpy as np
     import torch
@@ -5500,7 +5727,7 @@ def run_launcher(card, work, entry, corpus, name="sam2.1_hiera_t512", device="cu
     if len(records) != epochs or not steps:
         raise AssertionError(f"(f) {len(records)} epochs of stats and {len(steps)} steps recorded")
     rec = StepRecorder()
-    rec.steps = [(types.SimpleNamespace(n_init=s["n_init"]), s["launches"], s["core_loss"]) for s in steps]
+    rec.steps = [(s["n_init"], s["launches"], s["core_loss"]) for s in steps]
     rec.check("(f) the launcher's steps, counted in the trainer's process", on_card)
     video, click, _ = make_video(FRAMES, cfg.image_size, SEED)
     pred = build_sam2_video_predictor(name, ckpt_path=os.path.join(out, "checkpoint.npz"), fill_hole_area=8,
@@ -5576,6 +5803,7 @@ def main(argv=None) -> int:
         log(f"chip_smoke: {were_set} unset for the default phases; the fused phases set them themselves")
 
     # 1. the card
+    t_script = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"[1/15] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -5601,24 +5829,31 @@ def main(argv=None) -> int:
 
     # 3. each kernel against its plain version
     log("[3/15] kernels vs plain versions at the main-path shapes (bf16)")
+    t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = check_kernels(g)
     check_kernel_grads(g)
     check_dropout_kernels(g, rows)
     check_fused_kernels(g, rows)
     check_window_attention_v1(g, rows)
+    log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
     # 4-5. the main path: sam2.1_hiera_t512, switches off, then on
     log("[4/15] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
+    t0 = time.perf_counter()
     t512 = run_propagation("sam2.1_hiera_t512", build_sam2_video_predictor, PER_ENCODED_FRAME,
                            PER_ENCODED_FRAME_FUSED, "main_path", "[5/15]", card, args.profile,
                            precompute=PRECOMPUTE_BATCH)
 
+    log(f"  phases 4-5 took {time.perf_counter() - t0:.1f} s")
+
     # 6. EfficientMedSAM-S: the same, through the EfficientTAM entry point
     log("[6/15] EfficientMedSAM-S: efficientmedsam_s_512, bf16, seeded weights and video")
+    t0 = time.perf_counter()
     eff = run_propagation("efficientmedsam_s_512", build_efficienttam_video_predictor, PER_ENCODED_FRAME_VIT,
                           PER_ENCODED_FRAME_VIT_FUSED, "efficienttam_s", "[6/15]", card, args.profile,
                           VIT_IOU_MARGIN)
+    log(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
     launches = {k: t512["default"][k] + eff["default"][k] for k in t512["default"]}
     for k in ("cxblock", "qkv_window_attention"):  # the kernels of the fused configuration
         launches[k] = t512["fused"][k] + eff["fused"][k]
@@ -5706,7 +5941,8 @@ def main(argv=None) -> int:
     log("[15/15] per-shape detail " + json.dumps(detail))
     peak = max(PEAK_RESERVED[0], torch.cuda.max_memory_reserved())
     log(f"  the run's peak reserved device memory {peak / 2**30:.3f} GiB (max_memory_reserved; "
-        f"{MEMORY_NEED_GIB} GiB asked free at the start)")
+        f"{MEMORY_NEED_GIB} GiB asked free at the start); the script took {time.perf_counter() - t_script:.1f} s "
+        "after its imports")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

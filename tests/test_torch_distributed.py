@@ -64,12 +64,12 @@ def batch(valid, start=0, stop=B):
 def step(valid, start=0, stop=B, seed=5):
     torch.manual_seed(0)
     state = create_train_state(model(), CFG, device="cpu", dtype=torch.float32)
-    m = make_train_step(CFG)(state, batch(valid, start, stop), torch.Generator().manual_seed(seed))
+    m = make_train_step(CFG)(state, batch(valid, start, stop), seed)
     return {"loss": {k: float(v) for k, v in m.items() if k.startswith(("core", "loss"))},
             "grad_norm": float(m["grad_norm"]),
             "grads": {n: g.detach().clone() for n, g in m["grads"].items()},
             "params": {n: p.detach().clone() for n, p in state.model.named_parameters()},
-            "mode": m["plan"].mode}
+            "mode": int(m["plan"].mode)}
 
 
 def worker(rank, world, port, valid, seed, out_dir):
@@ -95,15 +95,15 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-# step seeds: 3 draws box prompts on one initial frame and corrects both
-# frames with clicks (the noise drawn for the global batch's objects); 5 draws
-# mask prompts
-@pytest.mark.parametrize("seed", [3, 5])
+# step seeds: 10 draws box prompts on one initial frame and corrects both
+# frames with clicks (the noise drawn for the global batch's objects); 4 draws
+# mask prompts on one initial frame
+@pytest.mark.parametrize("seed", [10, 4])
 @pytest.mark.parametrize("valid", list(VALID))
 def test_two_gloo_ranks_equal_the_global_step(valid, seed, tmp_path):
     torch.set_num_threads(1)
     want = step(VALID[valid], seed=seed)
-    assert want["mode"] == {3: 1, 5: 2}[seed]
+    assert want["mode"] == {10: 1, 4: 2}[seed]
     mp.spawn(worker, args=(2, free_port(), VALID[valid], seed, str(tmp_path)), nprocs=2, join=True)
     ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
     for got in ranks:

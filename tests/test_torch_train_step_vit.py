@@ -108,7 +108,7 @@ def test_vit_train_step_loss_and_every_gradient_match_jax(setting):
     model = _port_model(cfg, params)
     stacked, finals, plan = train_forward(model, torch.Generator().manual_seed(0), t(images), t(masks),
                                           TrainSimConfig(**sim_kw), is_training)
-    assert plan.n_init == 1 and plan.mode == (0 if not is_training else 2)
+    assert int(plan.n_init) == 1 and int(plan.mode) == (0 if not is_training else 2)
     got = multi_step_loss_stacked(LossConfig(**LOSS), stacked, t(obj_valid).reshape(-1),
                                   final_logits_by_frame=finals)
     for k, v in want.items():
@@ -139,8 +139,7 @@ def _step(freeze=()):
                        optim=OptimConfig(total_steps=10, freeze_patterns=freeze))
     state = create_train_state(model, tcfg, device="cpu", dtype=torch.float32)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    metrics = make_train_step(tcfg)(state, TrainBatch(t(images), t(masks), torch.ones(1, 2, dtype=torch.bool)),
-                                    torch.Generator().manual_seed(3))
+    metrics = make_train_step(tcfg)(state, TrainBatch(t(images), t(masks), torch.ones(1, 2, dtype=torch.bool)), 3)
     assert np.isfinite(float(metrics["core_loss"])) and float(metrics["core_loss"]) > 0
     assert float(metrics["grad_norm"]) > 0
     moved = {n for n, p in model.named_parameters() if not torch.equal(p, before[n])}
@@ -263,12 +262,11 @@ def test_a_step_without_a_tracked_frame_gives_zero_gradients_as_jax():
     tcfg = TrainConfig(sim=TrainSimConfig(**sim_kw), loss=LossConfig(**LOSS), optim=OptimConfig(total_steps=10))
     state = create_train_state(model, tcfg, device="cpu", dtype=torch.float32)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    gen = torch.Generator().manual_seed(0)
     got, _, plan = train_forward(model, torch.Generator().manual_seed(0), t(images), t(masks), tcfg.sim, True)
-    assert plan.is_init == [True, True] and plan.mode == 2
+    assert plan.is_init.tolist() == [True, True] and int(plan.mode) == 2
     for k, v in got.items():
         np.testing.assert_array_equal(v.detach().numpy(), np.asarray(stacked[k]), err_msg=k)
-    metrics = make_train_step(tcfg)(state, TrainBatch(t(images), t(masks), t(obj_valid)), gen)
+    metrics = make_train_step(tcfg)(state, TrainBatch(t(images), t(masks), t(obj_valid)), 0)
     for k, v in want.items():
         np.testing.assert_allclose(float(metrics[k]), float(v), rtol=0, atol=2e-5, err_msg=k)
     assert float(metrics["grad_norm"]) == 0.0 and all(not g.any() for g in metrics["grads"].values())
@@ -281,19 +279,32 @@ def test_a_step_without_a_tracked_frame_gives_zero_gradients_as_jax():
 
 
 def test_a_loss_without_a_graph_still_raises_when_a_frame_is_tracked():
-    """Only a plan whose every frame is a mask-prompted conditioning frame may
-    give a loss without a graph. A step whose graph is lost (here: run under
-    ``torch.no_grad``) on a mask-prompted plan with one conditioning frame of
-    three raises at its backward, and no parameter moves."""
+    """Every plan's loss has a graph now: positions 1..n_init_max-1 run the
+    tracked branch under a selection, so the step has no special case for a
+    plan whose every frame is a mask-prompted conditioning frame. A step
+    whose graph is lost (here: run under ``torch.no_grad``) raises at its
+    backward, on a plan with one conditioning frame of three and on one
+    whose two frames are both conditioning frames, and no parameter moves;
+    with its graph, the second gives zero gradients and moves each parameter
+    by its decoupled weight decay alone."""
     cfg, _, params = _jax_setup()
-    images, masks = _video()
-    model = _port_model(cfg, params)
-    tcfg = TrainConfig(sim=TrainSimConfig(prob_to_use_pt_input=0.0, rand_init_cond_frames=False,
-                                          num_init_cond_frames=1), loss=LossConfig(**LOSS),
-                       optim=OptimConfig(total_steps=10))
-    state = create_train_state(model, tcfg, device="cpu", dtype=torch.float32)
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    with torch.no_grad(), pytest.raises(RuntimeError, match="does not require grad"):
-        make_train_step(tcfg)(state, TrainBatch(t(images), t(masks), torch.ones(1, 2, dtype=torch.bool)),
-                              torch.Generator().manual_seed(0))
-    assert state.step == 0 and all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+    for frames, n_init in ((3, 1), (2, 2)):
+        images, masks = _video(frames=frames)
+        model = _port_model(cfg, params)
+        tcfg = TrainConfig(sim=TrainSimConfig(prob_to_use_pt_input=0.0, rand_init_cond_frames=False,
+                                              num_init_cond_frames=n_init), loss=LossConfig(**LOSS),
+                           optim=OptimConfig(total_steps=10))
+        state = create_train_state(model, tcfg, device="cpu", dtype=torch.float32)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        batch = TrainBatch(t(images), t(masks), torch.ones(1, 2, dtype=torch.bool))
+        with torch.no_grad(), pytest.raises(RuntimeError, match="does not require grad"):
+            make_train_step(tcfg)(state, batch, 0)
+        assert state.step == 0 and all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+    metrics = make_train_step(tcfg)(state, batch, 0)
+    assert float(metrics["grad_norm"]) == 0.0 and all(not g.any() for g in metrics["grads"].values())
+    lr0, lr1 = state.optimizer.lr_at(0)
+    for n, p in model.named_parameters():
+        meta = state.optimizer.meta[n]
+        lr = float(np.float32(lr1 if meta.group == 1 else lr0) * np.float32(meta.mult))
+        want_p = before[n] - lr * (tcfg.optim.weight_decay * before[n]) if meta.wd_on else before[n]
+        torch.testing.assert_close(p.detach(), want_p, rtol=0, atol=0, msg=n)

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Train-step timing of the PyTorch port on the card: host ms per step,
-device ms per step, FLOPs and MFU.
+"""Train-step timing of the PyTorch port on the card: the captured step
+beside the same body run eagerly, host ms per step, device ms per step, idle
+share, FLOPs and MFU.
 
 Twin of tools/bench_train_step.py (reference hot loop: training/trainer.py
 836-880, batch 1 video x 4 frames x <= 5 objects, 512², bf16), with weights
-made from seed 0 and f32 master weights. The port's step is an eager loop,
-so there is no scan to time: ``--steps`` steps run one after another after a
-warm-up step, each timed on the host clock up to ``synchronize`` (median
-kept), then the same number of steps (the same plans, replayed from the
-generator's states) runs under ``utils/profiling.trace``, whose device busy
-time ``utils/traceparse`` gives (a trace in which a launch has no device
-event is refused: it would under-count that time). The FLOPs of those steps come from
-``utils/flops`` on a host copy in f32 (the kernels' plain versions), each
-step's plan replayed there; a step's FLOPs depend on its plan only (its
-prompt mode, conditioning and corrected frames), so each distinct plan is
-counted once. MFU = FLOPs / device seconds / the card's dense bf16 peak.
+made from seed 0 and f32 master weights. The step (``make_train_step``) is
+one CUDA graph replayed each step; its first call runs the body eagerly and
+captures it (the capture's seconds, taken apart, and its memory pool are
+recorded). Then
+``--steps`` replays, each timed on the host clock up to ``synchronize``
+(median kept), and the same number of eager runs of the body
+(``TrainStep.eager``, the body a capture records), with the same step
+seeds. Each set runs once more under ``utils/profiling.trace``, whose device
+busy time ``utils/traceparse`` gives (a trace in which a launch has no
+device event is refused: it would under-count that time); the idle share is
+1 - device ms / host ms. The step's FLOPs come from ``utils/flops`` on a host
+copy in f32 (the kernels' plain versions): every plan runs the same
+operations, so one step is counted. MFU = FLOPs / device seconds / the
+card's dense bf16 peak, of the captured step.
 
 Usage: python tools/torch_bench_train_step.py [--steps 10] [--frames 4] [--objects 3]
            [--cfg sam2.1_hiera_t512 | efficientmedsam_s_512 | a YAML] [--fusion gfte]
@@ -56,7 +60,7 @@ def main(argv=None) -> dict:
     from us_video_medsam2_tpu_torch.core.config import TemporalFusionConfig, resolve_config
     from us_video_medsam2_tpu_torch.training.losses import LossConfig
     from us_video_medsam2_tpu_torch.training.optimizer import OptimConfig
-    from us_video_medsam2_tpu_torch.training.train_model import TrainSimConfig, sample_plan
+    from us_video_medsam2_tpu_torch.training.train_model import TrainSimConfig
     from us_video_medsam2_tpu_torch.training.train_step import (
         TrainBatch,
         TrainConfig,
@@ -91,73 +95,72 @@ def main(argv=None) -> dict:
                           torch.ones(b, o, dtype=torch.bool, device=device))
 
     state = create_train_state(model, tcfg)  # the card, bf16 compute, f32 master weights
-    batch, step, gen = batch_on("cuda"), make_train_step(tcfg), torch.Generator().manual_seed(0)
+    batch, step = batch_on("cuda"), make_train_step(tcfg)
+    seeds = list(range(1, args.steps + 1))
 
-    def timed():
+    def timed(fn, seed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = step(state, batch, gen)
+        m = fn(state, batch, seed)
         torch.cuda.synchronize()
         return m, time.perf_counter() - t0
 
-    timed()  # warm-up: first calls, the kernels' library loaded
-    m, single = timed()
-    walls, plans = [], []
-    for _ in range(args.steps):
-        plans.append(gen.get_state())
-        m, w = timed()
-        walls.append(w)
-    loss = float(m["core_loss"])
-    # the same plans again under the profiler
-    tdir = args.profile or tempfile.mkdtemp(prefix="train_bench_trace_")
-    with trace(tdir, modules=state.model):
-        for p in plans:
-            gen.set_state(p)
-            step(state, batch, gen)
-        torch.cuda.synchronize()
-    device_ms = device_self_time_ms(tdir) / args.steps
-    if not args.profile:
-        import shutil
+    _, capture_wall = timed(step, 0)  # the first call: the eager body, then the capture
+    graph = step.captured.last
+    runs = {}
+    for name, fn in (("captured", step), ("eager", step.eager)):
+        timed(fn, 0)  # a first eager call of its own: the kernels' library loaded
+        walls = []
+        for s_ in seeds:
+            m, w = timed(fn, s_)
+            walls.append(w)
+        tdir = args.profile and os.path.join(args.profile, name) or tempfile.mkdtemp(prefix="train_bench_trace_")
+        with trace(tdir, modules=state.model):
+            for s_ in seeds:
+                fn(state, batch, s_)
+            torch.cuda.synchronize()
+        device_ms = device_self_time_ms(tdir) / args.steps
+        if not args.profile:
+            import shutil
 
-        shutil.rmtree(tdir, ignore_errors=True)
-    del state
+            shutil.rmtree(tdir, ignore_errors=True)
+        median = 1e3 * statistics.median(walls)
+        runs[name] = {"ms_per_step": round(median, 3), "device_ms_per_step": round(device_ms, 3),
+                      "idle_share": round(1.0 - device_ms / median, 4), "core_loss": round(float(m["core_loss"]), 4)}
+    if step.captures != 1:
+        raise AssertionError(f"{step.captures} captures, expected 1")
+    runs["captured"].update(captures=step.captures, capture_s=round(graph.capture_s, 3),
+                            warm_up_s=round(graph.warm_up_s, 3),
+                            capture_parts_s={k: round(v, 3) for k, v in graph.parts_s.items()},
+                            first_call_ms=round(1e3 * capture_wall, 1),
+                            graph_pool_mib=round(graph.pool_bytes / 2**20, 1))
+    del state, graph, step
     torch.cuda.empty_cache()
 
-    # FLOPs of each distinct plan, on a host copy in f32
+    # FLOPs of one step (every plan runs the same operations), on a host copy in f32
     host_model = build_sam2(cfg, state_dict=weights, binarize_mask_from_pts_for_mem_enc=False)
     host = create_train_state(host_model, tcfg, device="cpu", dtype=torch.float32)
-    host_batch, counted = batch_on("cpu"), {}
-    total_flops = 0
-    for p in plans:
-        g = torch.Generator().manual_seed(0)
-        g.set_state(p)
-        plan = sample_plan(g, tcfg.sim, t, True)
-        key = (plan.mode, plan.n_init, tuple(plan.is_init), tuple(plan.should_correct))
-        if key not in counted:
-            g.set_state(p)
-            counted[key] = fn_flops(step, host, host_batch, g)
-        total_flops += counted[key]
-    flops = total_flops / args.steps
+    flops = fn_flops(make_train_step(tcfg), host, batch_on("cpu"), seeds[0])
     kind = torch.cuda.get_device_name(0)
     peak = peak_bf16_flops(kind)
-    mfu_pct = None if peak is None else round(100.0 * flops / (device_ms / 1e3) / peak, 3)
-    median = 1e3 * statistics.median(walls)
-    print(f"train_step {args.cfg}/{args.fusion} {t}f x {o}obj @{size}²: single step {1e3 * single:.1f} ms wall, "
-          f"median {median:.1f} ms/step over {args.steps}, device {device_ms:.2f} ms/step, "
-          f"{flops / 1e9:.1f} GFLOP/step, MFU {mfu_pct}% ({kind}; {card_line()}) (core_loss {loss:.4f})")
+    cap, eager = runs["captured"], runs["eager"]
+    mfu_pct = None if peak is None else round(100.0 * flops / (cap["device_ms_per_step"] / 1e3) / peak, 3)
+    print(f"train_step {args.cfg}/{args.fusion} {t}f x {o}obj @{size}²: captured {cap['ms_per_step']:.2f} ms/step "
+          f"(device {cap['device_ms_per_step']:.2f} ms, idle {cap['idle_share']:.3f}; capture "
+          f"{cap['capture_s']:.2f} s, pool {cap['graph_pool_mib']:.1f} MiB), eager {eager['ms_per_step']:.2f} ms/step "
+          f"(device {eager['device_ms_per_step']:.2f} ms, idle {eager['idle_share']:.3f}), median over {args.steps}; "
+          f"{flops / 1e9:.1f} GFLOP/step, MFU {mfu_pct}% ({kind}; {card_line()})")
     record = {
         "metric": f"train_step_ms_{os.path.basename(args.cfg)}_{args.fusion}",
-        "value": round(median, 2),
-        "unit": "ms/step (host clock, median)",
-        "single_step_ms": round(1e3 * single, 1),
-        "device_ms_per_step": round(device_ms, 2),
+        "value": cap["ms_per_step"],
+        "unit": "ms/step (host clock, median, captured step)",
+        "captured": cap,
+        "eager": eager,
         "mfu_pct": mfu_pct,
         "flops_per_step_gflop": round(flops / 1e9, 1),
-        "plans_counted": len(counted),
         "frames": t,
         "objects": o,
         "image_size": size,
-        "core_loss": round(loss, 4),
         "card": card_line(),
     }
     print(json.dumps(record))

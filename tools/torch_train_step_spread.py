@@ -50,8 +50,7 @@ def main(argv=None) -> int:
     def step(sd, dev, dtype, fused):
         with cs.fused_switches(fused):
             st = create_train_state(cs.build_train_model(sd, dropout=0.0), fixed, device=dev, dtype=dtype)
-            m = make_train_step(fixed)(st, cs.make_train_batch(cs.HOST_T, st.model.cfg.image_size, dev),
-                                       torch.Generator().manual_seed(cs.SEED))
+            m = make_train_step(fixed)(st, cs.make_train_batch(cs.HOST_T, st.model.cfg.image_size, dev), cs.SEED)
         return float(m["core_loss"]), {n: g.detach().float().cpu() for n, g in m["grads"].items()}
 
     def rel_l2(a, b):

@@ -3,7 +3,9 @@
 //
 // Replaces us_video_medsam2_tpu/kernels/flash_dropout.py (flash_attention_train:
 // _fwd_kernel at _fwd_call, _bwd_kernel at _bwd_call). q [BH, Lq, D], k/v
-// [BH, Lk, D] bf16, mask [B, Lk] uint8 (1 = attend, may be null), D = 256.
+// [BH, Lk, D] bf16, mask [B, Lk] uint8 (1 = attend, may be null), D = 256,
+// seed: one int32 in device memory, read by the kernels (so a captured launch
+// draws anew each replay).
 //
 // Keep decision: the murmur3 finalizer over the element's global index
 // (bh * Lq + q) * Lk + k, mixed with seed * 0x9e3779b9, all in wrapping 32-bit
@@ -94,6 +96,12 @@ __device__ __forceinline__ unsigned keep_hash(unsigned idx, unsigned seed_mix) {
   return h;
 }
 
+// the seed's mix into the hash: seed * 0x9e3779b9 in wrapping 32-bit arithmetic,
+// the seed read from device memory (the JAX kernel's seed_ref operand)
+__device__ __forceinline__ unsigned seed_mix_of(const int* seed) {
+  return (unsigned)__ldg(seed) * 0x9e3779b9u;
+}
+
 // dropout factor of element (bh, qi, key): 0 or 1 / (1 - rate)
 __device__ __forceinline__ float keep_factor(int bh, int qi, int key, int lq, int lk,
                                              unsigned seed_mix, unsigned thr, float inv_keep) {
@@ -140,7 +148,8 @@ struct Args {
   float *o_part, *ml_part;  // each split's O [splits, bh, lq, D] and (m, l) [splits, bh, lq, 2]; null with one split
   int bh, h, lq, lk, splits;
   float scale, inv_keep;
-  unsigned seed_mix, thr;
+  const int* seed;  // the int32 dropout seed, on the device
+  unsigned thr;
 };
 
 // rows [row0, row0 + ROWS) of a [*, D] head into a tile by cp.async, rows at or past `valid` zero-filled
@@ -169,6 +178,7 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(Args a) {
   const int g = lane >> 2, t4 = lane & 3;
 
   const int q0 = blockIdx.x * BQ, split = blockIdx.y, bh = blockIdx.z;
+  const unsigned seed_mix = seed_mix_of(a.seed);
   const usm::bf16* qh = a.q + (size_t)bh * a.lq * D;
   const usm::bf16* kh = a.k + (size_t)bh * a.lk * D;
   const usm::bf16* vh = a.v + (size_t)bh * a.lk * D;
@@ -290,7 +300,7 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(Args a) {
 #pragma unroll
       for (int x = kd * PER_KD; x < (kd + 1) * PER_KD; ++x) {
         const unsigned idx = row_idx[x / (BK / 4)] + (unsigned)(k0 + (x % (BK / 4)) / 2 * 8 + x % 2);
-        keep |= (uint32_t)(keep_hash(idx, a.seed_mix) >= a.thr) << x;
+        keep |= (uint32_t)(keep_hash(idx, seed_mix) >= a.thr) << x;
       }
     }
 
@@ -532,12 +542,14 @@ struct Args {
   int bh, h, lq, lk;
   int q_splits, k_splits;  // of the dk/dv blocks' query tiles, of the dq blocks' key tiles
   float scale, scale_log2, inv_keep;
-  unsigned seed_mix, thr;
+  const int* seed;  // the int32 dropout seed, on the device
+  unsigned thr;
 };
 
 // dk, dv of block (kt, split, bh): keys [64 kt, 64 kt + 64) resident, walking
 // the query tiles of its split.
 __device__ __forceinline__ void kv_block(const Args& a, int kt, int split, int bh, unsigned char* smem) {
+  const unsigned seed_mix = seed_mix_of(a.seed);
   usm::bf16* ks = reinterpret_cast<usm::bf16*>(smem);
   usm::bf16* vs = reinterpret_cast<usm::bf16*>(smem + TILE);
   // stage st: Q at smem + (2 + 2 st) TILE, dO right after it
@@ -629,7 +641,7 @@ __device__ __forceinline__ void kv_block(const Args& a, int kt, int split, int b
             if (in[r] && qi < a.lq) {
               if (!has_valid) p = inv_lk;  // every key masked: uniform
               else if (att[r]) p = exp2f(fminf(st[j][2 * r + e] * a.scale_log2 - lse_t[qc + e] * LOG2E, 0.f));
-              const float kf = keep_factor(bh, qi, k0 + wr + g + 8 * r, a.lq, a.lk, a.seed_mix, a.thr,
+              const float kf = keep_factor(bh, qi, k0 + wr + g + 8 * r, a.lq, a.lk, seed_mix, a.thr,
                                            a.inv_keep);
               pd[e] = p * kf;
               if (att[r]) ds[e] = p * (dpt[j][2 * r + e] * kf - del_t[qc + e]);
@@ -659,6 +671,7 @@ __device__ __forceinline__ void kv_block(const Args& a, int kt, int split, int b
 // the key tiles of its split and skipping wholly masked ones when the batch
 // has a valid key.
 __device__ __forceinline__ void q_block(const Args& a, int qt, int split, int bh, unsigned char* smem) {
+  const unsigned seed_mix = seed_mix_of(a.seed);
   usm::bf16* qs = reinterpret_cast<usm::bf16*>(smem);
   usm::bf16* gs = reinterpret_cast<usm::bf16*>(smem + TILE);
   // stage st: K at smem + (2 + 2 st) TILE, V right after it
@@ -742,7 +755,7 @@ __device__ __forceinline__ void q_block(const Args& a, int qt, int split, int bh
             // an attended key implies the batch has a valid key: P from lse
             if (qin[r] && key < a.lk && (!mrow || mrow[key])) {
               const float p = exp2f(fminf(s[j][2 * r + e] * a.scale_log2 - lse2[r], 0.f));
-              const float kf = keep_factor(bh, q0 + wr + g + 8 * r, key, a.lq, a.lk, a.seed_mix, a.thr,
+              const float kf = keep_factor(bh, q0 + wr + g + 8 * r, key, a.lq, a.lk, seed_mix, a.thr,
                                            a.inv_keep);
               ds[e] = p * (dp[j][2 * r + e] * kf - del[r]);
             }
@@ -846,11 +859,11 @@ extern "C" int usm_flash_dropout_fwd_blocks_per_sm(int* blocks) {
 extern "C" int usm_flash_dropout_fwd_bf16(const void* q, const void* k, const void* v,
                                           const void* mask, void* out, void* lse, void* scratch, int bh,
                                           int h, int lq, int lk, int d, int splits, float scale,
-                                          unsigned seed_mix, unsigned thr, float inv_keep, void* stream) {
+                                          const void* seed, unsigned thr, float inv_keep, void* stream) {
   using namespace fwd;
   if (bh <= 0 || lq <= 0) return cudaSuccess;
   if (lk <= 0 || h <= 0 || d != D || splits <= 0 || splits > 65535 || bh > 65535) return cudaErrorInvalidValue;
-  if (splits > 1 && !scratch) return cudaErrorInvalidValue;
+  if ((splits > 1 && !scratch) || !seed) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = usm::allow_smem(kernel, BYTES);
   if (e != cudaSuccess) return e;
@@ -858,7 +871,7 @@ extern "C" int usm_flash_dropout_fwd_bf16(const void* q, const void* k, const vo
   float* ml_part = splits > 1 ? o_part + (size_t)splits * bh * lq * D : nullptr;
   Args a{static_cast<const usm::bf16*>(q), static_cast<const usm::bf16*>(k), static_cast<const usm::bf16*>(v),
          static_cast<const unsigned char*>(mask), static_cast<usm::bf16*>(out), static_cast<float*>(lse),
-         o_part, ml_part, bh, h, lq, lk, splits, scale, inv_keep, seed_mix, thr};
+         o_part, ml_part, bh, h, lq, lk, splits, scale, inv_keep, static_cast<const int*>(seed), thr};
   kernel<<<dim3((lq + BQ - 1) / BQ, splits, bh), THREADS, BYTES, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
@@ -876,11 +889,11 @@ extern "C" int usm_flash_dropout_bwd_bf16(const void* q, const void* k, const vo
                                           const void* out, const void* g, const void* lse,
                                           const void* mask, void* dq, void* dk, void* dv, void* scratch,
                                           int bh, int h, int lq, int lk, int d, int q_splits,
-                                          int k_splits, float scale, unsigned seed_mix, unsigned thr,
+                                          int k_splits, float scale, const void* seed, unsigned thr,
                                           float inv_keep, void* stream) {
   using namespace bwd;
   if (bh <= 0 || lq <= 0) return cudaSuccess;
-  if (lk <= 0 || h <= 0 || d != D || !scratch) return cudaErrorInvalidValue;
+  if (lk <= 0 || h <= 0 || d != D || !scratch || !seed) return cudaErrorInvalidValue;
   if (q_splits <= 0 || k_splits <= 0 || q_splits > 65535 || k_splits > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = usm::allow_smem(bwd_kernel, KV_BYTES > Q_BYTES ? KV_BYTES : Q_BYTES);
@@ -903,7 +916,8 @@ extern "C" int usm_flash_dropout_bwd_bf16(const void* q, const void* k, const vo
          static_cast<const float*>(lse), delta, static_cast<const unsigned char*>(mask),
          static_cast<usm::bf16*>(dq), static_cast<usm::bf16*>(dk), static_cast<usm::bf16*>(dv),
          k_splits > 1 ? dq_part : nullptr, q_splits > 1 ? dk_part : nullptr, q_splits > 1 ? dv_part : nullptr,
-         bh, h, lq, lk, q_splits, k_splits, scale, scale * LOG2E, inv_keep, seed_mix, thr};
+         bh, h, lq, lk, q_splits, k_splits, scale, scale * LOG2E, inv_keep,
+         static_cast<const int*>(seed), thr};
   const long long blocks = (long long)k_tiles * q_splits * bh + (long long)q_tiles * k_splits * bh;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
   bwd_kernel<<<(unsigned)blocks, THREADS, KV_BYTES > Q_BYTES ? KV_BYTES : Q_BYTES, s>>>(a);

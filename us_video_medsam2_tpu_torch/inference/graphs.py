@@ -17,40 +17,24 @@ body eagerly. The same body serves batched multi-video serving
 (``inference/serve.py``): there the frame buffer holds one frame for each of
 the bank's rows, each row a video, and each row keeps its own features.
 
-``FrameGraph`` holds one capture. Before capturing it runs the body once
-eagerly on a side stream (as ``torch.cuda.graphs`` asks): capture executes
-nothing, so every table that comes into being at first use (the position
-tables of ``ops/posenc.py``, the ViTDet pos-embed table, cuBLAS and cuDNN
-state) must exist before it. The kernels' launch counters are Python-side:
-they tick once at capture and never at replay. A graph records the counts
-its capture ticked, takes them back off, and adds them on every replay, so a
-counter keeps meaning launches that the device ran. A failed capture or
-replay raises; nothing falls back to the eager body on the card.
-
-A graph reads the weights by address. It keeps each weight tensor it read
-alive, so no other tensor takes that memory while it lives, with the
-tensor's version then; ``FrameGraphs`` drops every graph once a weight has
-other memory or another version (an in-place update, ``.data =``, a cast).
-It keeps at most ``MAX_GRAPHS``, the last used.
+``FrameGraphs`` keeps a predictor's captures (``utils/graphs.py``'s
+``FrameGraph``), one a key, and drops every graph once a weight has other
+memory or another version (an in-place update, ``.data =``, a cast). It
+keeps at most ``MAX_GRAPHS``, the last used.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from us_video_medsam2_tpu_torch.inference.transforms import prep_frames
-from us_video_medsam2_tpu_torch.kernels import _lib
 from us_video_medsam2_tpu_torch.models.memory_bank import MemoryBank
-
-# graphs a predictor keeps: forward and reverse of one shape, or its two
-# kernel configurations; past that the least recently used is dropped
-MAX_GRAPHS = 2
+from us_video_medsam2_tpu_torch.utils.graphs import MAX_GRAPHS, FrameGraph, read_counts  # noqa: F401
 
 
 @dataclasses.dataclass
@@ -136,76 +120,9 @@ def copy_bank(dst: MemoryBank, src: MemoryBank) -> None:
         d.copy_(s)
 
 
-def read_counts() -> Dict[Callable, int]:
-    return {w: w.launches for w in _lib.COUNTED.values()}
-
-
 def weight_tensors(model) -> list:
     """What a captured body reads of the model: its parameters and buffers."""
     return list(model.parameters()) + list(model.buffers())
-
-
-def _version(w: torch.Tensor) -> Optional[int]:
-    return None if w.is_inference() else w._version  # inference tensors keep no version
-
-
-class FrameGraph:
-    """One captured frame body over its buffers, with the launches it
-    captured (by wrapper), the seconds its warm-up and capture took and the
-    bytes its memory pool holds."""
-
-    def __init__(self, bufs: FrameBuffers, weights: Sequence[torch.Tensor] = ()):
-        self.bufs = bufs
-        # the weights its capture reads, held so that their memory stays
-        # theirs, with their versions then
-        self.weights = [(w.detach(), _version(w)) for w in weights]
-        self.graph = None
-        self.counts: Dict[Callable, int] = {}
-        self.capture_s = 0.0
-        self.pool_bytes = 0
-
-    def warm_up_and_capture(self, body: Callable[[], None]) -> None:
-        dev = self.bufs.t.device
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        self.capture(body)
-        torch.cuda.synchronize(dev)
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.capture_s = time.perf_counter() - t0
-
-    def capture(self, body: Callable[[], None], new_graph=torch.cuda.CUDAGraph,
-                graph_context=torch.cuda.graph) -> None:
-        """Capture ``body`` (warmed up already); the counters it ticked are
-        recorded and taken back off."""
-        before = read_counts()
-        graph = new_graph()
-        try:
-            with graph_context(graph):
-                body()
-        finally:
-            after = read_counts()
-            for w, n in before.items():
-                w.launches = n
-        self.counts = {w: after[w] - n for w, n in before.items() if after[w] != n}
-        self.graph = graph
-
-    def reads(self, weights: Sequence[torch.Tensor]) -> bool:
-        """Whether ``weights`` are still the tensors this graph read, unchanged."""
-        return len(weights) == len(self.weights) and all(
-            w.device == held.device and w.data_ptr() == held.data_ptr() and _version(w) == v
-            for w, (held, v) in zip(weights, self.weights))
-
-    def replay(self) -> None:
-        self.graph.replay()
-        for w, n in self.counts.items():
-            w.launches += n
 
 
 class FrameGraphs:

@@ -11,7 +11,11 @@ The keep decision of element (bh, q, k) is the JAX package's murmur3 hash of
 its global index (bh·Lq + q)·Lk + k mixed with an int32 seed, in wrapping
 32-bit arithmetic with logical shifts (``keep_from_index``). The mask is
 bit-identical to ``keep_mask_reference`` there, and the same in the plain
-version, both kernels and the JAX package, for any tiling.
+version, both kernels and the JAX package, for any tiling. The seed is an
+int or a 0-d integer tensor (the training step draws it on the device); the
+kernels read it from device memory as the JAX kernels read their
+``seed_ref`` operand, so a launch captured in a CUDA graph draws anew at
+each replay, and no host value carries it.
 
 On the H100 both kernels are bound by operations (forward 4·Lq·Lk·D flop,
 backward 10·Lq·Lk·D, over the unmasked keys). ``csrc/flash_dropout.cu``
@@ -72,17 +76,26 @@ def keep_threshold(rate: float) -> int:
     return min(int(round(rate * 2.0**32)), 2**32 - 1)
 
 
-def keep_from_index(idx: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _seed_mix(seed, device=None):
+    """seed · 0x9e3779b9 mod 2^32: an int for an int seed, else an int64
+    tensor on ``device`` (the seed's own by default)."""
+    if isinstance(seed, torch.Tensor):
+        return (seed.to(device=device, dtype=torch.int64) * _GOLD) & _M32
+    return (int(seed) * _GOLD) & _M32
+
+
+def keep_from_index(idx: torch.Tensor, seed, rate: float) -> torch.Tensor:
     """Keep mask of the elements whose global index (bh·Lq + q)·Lk + k is
-    ``idx`` (int64, wrapped to 32 bits here, as the int32 index wraps)."""
-    h = (idx & _M32) ^ ((int(seed) * _GOLD) & _M32)
+    ``idx`` (int64, wrapped to 32 bits here, as the int32 index wraps);
+    ``seed`` an int or a 0-d integer tensor."""
+    h = (idx & _M32) ^ _seed_mix(seed, idx.device)
     h = _mul32(h ^ (h >> 16), _M1)
     h = _mul32(h ^ (h >> 13), _M2)
     h = h ^ (h >> 16)
     return h >= keep_threshold(rate)
 
 
-def keep_mask(bh: int, lq: int, lk: int, seed: int, rate: float, device="cpu") -> torch.Tensor:
+def keep_mask(bh: int, lq: int, lk: int, seed, rate: float, device="cpu") -> torch.Tensor:
     """[bh, lq, lk] bool keep mask (the JAX ``keep_mask_reference``)."""
     i = torch.arange(bh, device=device)[:, None, None]
     q = torch.arange(lq, device=device)[None, :, None]
@@ -90,7 +103,7 @@ def keep_mask(bh: int, lq: int, lk: int, seed: int, rate: float, device="cpu") -
     return keep_from_index((i * lq + q) * lk + k, seed, rate)
 
 
-def flash_attention_train_plain(q, k, v, key_mask, seed: int, rate: float):
+def flash_attention_train_plain(q, k, v, key_mask, seed, rate: float):
     """Plain PyTorch version: (out, lse [B, H, Lq] f32)."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -140,7 +153,7 @@ def fwd_attended_keys(key_mask, b: int, lk: int, splits: int, device="cpu") -> t
     return (ours & take[None]).repeat_interleave(BLOCK, -1)[..., :lk]
 
 
-def flash_dropout_fwd_split_partials(q, k, v, key_mask, seed: int, rate: float, splits: int):
+def flash_dropout_fwd_split_partials(q, k, v, key_mask, seed, rate: float, splits: int):
     """Each forward split's O_i [splits, B, H, Lq, D] (f32, P·keep/(1 − rate)
     rounded to v's dtype as the kernel rounds it), running max m_i and
     undropped sum l_i [splits, B, H, Lq] in f32, natural-log units, over the
@@ -177,7 +190,7 @@ def combine_fwd_partials(o, m, l, dtype):
     return (sum_in_order(w[..., None] * o) / total[..., None]).to(dtype), top + torch.log(total)
 
 
-def flash_dropout_fwd_split_plain(q, k, v, key_mask, seed: int, rate: float, splits: int):
+def flash_dropout_fwd_split_plain(q, k, v, key_mask, seed, rate: float, splits: int):
     """Plain model of the forward kernels' split over key tiles and their
     combine (tests only): (out, lse [B, H, Lq] f32)."""
     return combine_fwd_partials(*flash_dropout_fwd_split_partials(q, k, v, key_mask, seed, rate, splits),
@@ -198,7 +211,7 @@ def bwd_splits(bh: int, lq: int, lk: int) -> tuple[int, int]:
     return q_splits, -(-k_tiles // walk)
 
 
-def flash_dropout_bwd_split_partials(q, k, v, key_mask, seed: int, rate: float, out, lse, g,
+def flash_dropout_bwd_split_partials(q, k, v, key_mask, seed, rate: float, out, lse, g,
                                      q_splits: int, k_splits: int):
     """The backward kernels' f32 partials, unscaled: dq_i [k_splits, B, H, Lq,
     D] over each key range, dk_i and dv_i [q_splits, B, H, Lk, D] over each
@@ -241,7 +254,7 @@ def sum_in_order(parts: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def flash_dropout_bwd_split_plain(q, k, v, key_mask, seed: int, rate: float, out, lse, g,
+def flash_dropout_bwd_split_plain(q, k, v, key_mask, seed, rate: float, out, lse, g,
                                   q_splits: int, k_splits: int):
     """Plain model of the backward kernels' split and combine (tests only):
     (dq, dk, dv) = (scale·Σ dq_i, scale·Σ dk_i, Σ dv_i), each sum in split
@@ -269,9 +282,29 @@ def _check(q, k, v, key_mask, name):
     return key_mask.contiguous()
 
 
-def _hash_args(seed: int, rate: float, d: int):
-    return (float(d**-0.5), (int(seed) * _GOLD) & _M32, keep_threshold(rate),
-            float(1.0 / (1.0 - rate)))
+def draw_seed(gen: torch.Generator | None, device) -> torch.Tensor:
+    """One int32 dropout seed drawn from ``gen`` (``device``'s default
+    generator when None), as a 0-d int32 tensor on ``device``: a device draw
+    that a captured step repeats at each replay (JAX ``jax.random.bits`` to
+    int32)."""
+    dev = torch.device(device) if gen is None else gen.device
+    return torch.randint(-(2**31), 2**31, (), generator=gen, device=dev, dtype=torch.int32).to(device)
+
+
+def seed_operand(seed, device) -> torch.Tensor:
+    """The kernels' seed operand: one int32 on ``device``. A 0-d int32
+    tensor there is taken as it is (the training step's draw); an int is
+    wrapped to int32 and written there by a fill (no copy from the host)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int32 or seed.numel() != 1 or seed.device != device:
+            raise ValueError(f"dropout seed must be one int32 on {device}, got {seed.dtype} {tuple(seed.shape)} "
+                             f"on {seed.device}")
+        return seed.reshape(())
+    return torch.full((), (int(seed) + 2**31) % 2**32 - 2**31, dtype=torch.int32, device=device)
+
+
+def _hash_args(seed: torch.Tensor, rate: float, d: int):
+    return (float(d**-0.5), seed.data_ptr(), keep_threshold(rate), float(1.0 / (1.0 - rate)))
 
 
 def _fwd_scratch_floats(bh: int, lq: int, d: int, splits: int) -> int:
@@ -280,12 +313,14 @@ def _fwd_scratch_floats(bh: int, lq: int, d: int, splits: int) -> int:
     return 0 if splits == 1 else splits * bh * lq * (d + 2)
 
 
-def flash_dropout_fwd(q, k, v, key_mask, seed: int, rate: float):
+def flash_dropout_fwd(q, k, v, key_mask, seed, rate: float):
     """Forward kernels: (out bf16, lse [B, H, Lq] f32). CUDA bf16 only; one
     count per call, whatever the number of kernels (the split blocks, and
-    their combine where ``fwd_splits`` gives more than one)."""
+    their combine where ``fwd_splits`` gives more than one). ``seed``: see
+    ``seed_operand``."""
     global _fwd_fn
     key_mask = _check(q, k, v, key_mask, "flash_dropout_fwd")
+    seed = seed_operand(seed, q.device)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     out = torch.empty_like(q)
@@ -295,7 +330,7 @@ def flash_dropout_fwd(q, k, v, key_mask, seed: int, rate: float):
     scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     if _fwd_fn is None:
         _fwd_fn = _lib.fn("usm_flash_dropout_fwd_bf16",
-                          [_lib.P] * 7 + [_lib.I] * 6 + [_lib.F, _lib.U, _lib.U, _lib.F, _lib.P])
+                          [_lib.P] * 7 + [_lib.I] * 6 + [_lib.F, _lib.P, _lib.U, _lib.F, _lib.P])
     rc = _fwd_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if key_mask is None else key_mask.data_ptr(),
                  out.data_ptr(), lse.data_ptr(), None if scratch is None else scratch.data_ptr(), b * h, h, lq,
                  lk, d, splits, *_hash_args(seed, rate, d), _lib.stream_ptr(q))
@@ -327,14 +362,15 @@ def _bwd_scratch_floats(bh: int, lq: int, lk: int, d: int, q_splits: int, k_spli
     return n
 
 
-def flash_dropout_bwd(q, k, v, key_mask, seed: int, rate: float, out, lse, g):
+def flash_dropout_bwd(q, k, v, key_mask, seed, rate: float, out, lse, g):
     """Backward kernels: (dq, dk, dv) bf16 from the forward's (out, lse) and
     the output gradient g. CUDA bf16 only; one count per call, whatever the
     number of kernels (delta = Σ_d g·out per row; the dk/dv and dq blocks in
     one launch; a combine of the splits of each where ``bwd_splits`` gives
-    more than one)."""
+    more than one). ``seed``: see ``seed_operand``."""
     global _bwd_fn
     key_mask = _check(q, k, v, key_mask, "flash_dropout_bwd")
+    seed = seed_operand(seed, q.device)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     for name, t, shape, dtype in (("out", out, q.shape, q.dtype), ("g", g, q.shape, g.dtype),
@@ -349,7 +385,7 @@ def flash_dropout_bwd(q, k, v, key_mask, seed: int, rate: float, out, lse, g):
                           device=q.device)
     if _bwd_fn is None:
         _bwd_fn = _lib.fn("usm_flash_dropout_bwd_bf16",
-                          [_lib.P] * 11 + [_lib.I] * 7 + [_lib.F, _lib.U, _lib.U, _lib.F, _lib.P])
+                          [_lib.P] * 11 + [_lib.I] * 7 + [_lib.F, _lib.P, _lib.U, _lib.F, _lib.P])
     rc = _bwd_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
                  None if key_mask is None else key_mask.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), scratch.data_ptr(), b * h, h, lq, lk, d, q_splits, k_splits,
@@ -367,24 +403,25 @@ _lib.counted(flash_dropout_bwd)
 class _FlashTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_mask, seed, rate):
+        seed = seed_operand(seed, q.device)
         out, lse = flash_dropout_fwd(q, k, v, key_mask, seed, rate)
-        ctx.save_for_backward(q, k, v, key_mask, out, lse)
-        ctx.seed, ctx.rate = seed, rate
+        ctx.save_for_backward(q, k, v, key_mask, out, lse, seed)
+        ctx.rate = rate
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, key_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_dropout_bwd(q, k, v, key_mask, ctx.seed, ctx.rate, out, lse, g)
+        q, k, v, key_mask, out, lse, seed = ctx.saved_tensors
+        dq, dk, dv = flash_dropout_bwd(q, k, v, key_mask, seed, ctx.rate, out, lse, g)
         return dq, dk, dv, None, None, None
 
 
-def flash_attention_train(q, k, v, key_mask, seed: int, rate: float):
+def flash_attention_train(q, k, v, key_mask, seed, rate: float):
     """Attention with dropout ``rate`` after the softmax, keep mask from
-    ``seed`` (int32). CPU tensors take the plain version (autograd through
-    it); a CUDA tensor launches the forward kernel, and the backward kernels
-    in the backward pass, or raises."""
+    ``seed`` (an int32: a 0-d tensor on q's device, or an int). CPU tensors
+    take the plain version (autograd through it); a CUDA tensor launches the
+    forward kernel, and the backward kernels in the backward pass (the seed
+    tensor saved for them), or raises."""
     if q.is_cpu:
         return flash_attention_train_plain(q, k, v, key_mask, seed, rate)[0]
-    return _FlashTrain.apply(q.contiguous(), k.contiguous(), v.contiguous(), key_mask, int(seed),
-                             float(rate))
+    return _FlashTrain.apply(q.contiguous(), k.contiguous(), v.contiguous(), key_mask, seed, float(rate))

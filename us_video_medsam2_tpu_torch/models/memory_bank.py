@@ -55,14 +55,20 @@ def init_memory_bank(batch, num_frames, mem_hw, mem_dim, hidden_dim, dtype=torch
 
 
 def write_memory(bank: MemoryBank, frame_idx: int | torch.Tensor, maskmem: torch.Tensor,
-                 obj_ptr: torch.Tensor, is_cond: bool) -> MemoryBank:
-    """Store frame_idx's memory ([B, Hm*Wm, mem_dim], [B, C]) in place."""
+                 obj_ptr: torch.Tensor, is_cond: bool | torch.Tensor) -> MemoryBank:
+    """Store frame_idx's memory ([B, Hm*Wm, mem_dim], [B, C]) in place.
+    ``is_cond`` is a bool or, with a tensor index, may be a 0-d bool tensor
+    on the bank's device (the training step's plan), written by
+    ``index_copy_`` so that nothing is read back to the host."""
     if isinstance(frame_idx, torch.Tensor):
         t = frame_idx.reshape(1)
         bank.maskmem.index_copy_(1, t, maskmem.to(bank.maskmem.dtype)[:, None])
         bank.obj_ptr.index_copy_(1, t, obj_ptr.to(bank.obj_ptr.dtype)[:, None])
         bank.valid.index_fill_(1, t, True)
-        bank.is_cond.index_fill_(1, t, bool(is_cond))
+        if isinstance(is_cond, torch.Tensor):
+            bank.is_cond.index_copy_(1, t, is_cond.to(torch.bool).reshape(1, 1).expand(bank.is_cond.shape[0], 1))
+        else:
+            bank.is_cond.index_fill_(1, t, bool(is_cond))
         return bank
     bank.maskmem[:, frame_idx] = maskmem.to(bank.maskmem.dtype)
     bank.obj_ptr[:, frame_idx] = obj_ptr.to(bank.obj_ptr.dtype)

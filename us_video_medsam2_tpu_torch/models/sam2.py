@@ -274,13 +274,18 @@ class SAM2Model(nn.Module):
 
     # ---------------------------------------------------------- memory encode
     def encode_memory(self, curr_feat, high_res_masks, object_score_logits,
-                      is_mask_from_pts: bool = False, is_training: bool = False) -> torch.Tensor:
-        """Predicted mask + pixels -> memory feature [B, Hm, Wm, mem_dim] (sam2_base.py:1450-1498)."""
+                      is_mask_from_pts: bool | torch.Tensor = False, is_training: bool = False) -> torch.Tensor:
+        """Predicted mask + pixels -> memory feature [B, Hm, Wm, mem_dim] (sam2_base.py:1450-1498).
+        ``is_mask_from_pts`` may be a 0-d bool tensor (the training step's
+        plan, as JAX traces it): then both masks are made and selected."""
         c = self.cfg
         masks = high_res_masks.permute(0, 2, 3, 1)
         if c.non_overlap_masks_for_mem_enc and not is_training:
             masks = apply_non_overlapping_constraints(high_res_masks).permute(0, 2, 3, 1)
-        if c.binarize_mask_from_pts_for_mem_enc and is_mask_from_pts and not is_training:
+        binarize = c.binarize_mask_from_pts_for_mem_enc and not is_training
+        if binarize and isinstance(is_mask_from_pts, torch.Tensor):
+            mask_for_mem = torch.where(is_mask_from_pts, (masks > 0).float(), torch.sigmoid(masks.float()))
+        elif binarize and is_mask_from_pts:
             mask_for_mem = (masks > 0).float()
         else:
             mask_for_mem = torch.sigmoid(masks.float())

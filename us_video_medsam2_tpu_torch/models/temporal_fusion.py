@@ -17,9 +17,9 @@ statistics f32 reductions.
   dtype (the model's compute dtype, as ``nn.Dense(dtype=...)``), a product
   with an f32 parameter vector promotes to f32, scalar residual weights are
   cast to the input's dtype; BatchNorm statistics and GFTE's softmax are f32.
-- Random draws in training come from the step's CPU ``torch.Generator``,
-  each in one named function (``gfte_attention_keep``, ``gp_gumbel``), so
-  that the card and the host draw the same values.
+- Random draws in training come from the step's ``torch.Generator`` on the
+  model's device, each in one named function (``gfte_attention_keep``,
+  ``gp_gumbel``), so that a captured step draws them anew at each replay.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from us_video_medsam2_tpu_torch.core.config import TemporalFusionConfig
-from us_video_medsam2_tpu_torch.kernels.flash_dropout import keep_mask
+from us_video_medsam2_tpu_torch.kernels.flash_dropout import draw_seed, keep_mask
 from us_video_medsam2_tpu_torch.models.layers import Linear, gelu_exact
 
 
@@ -40,15 +40,16 @@ def gfte_attention_keep(b: int, heads: int, t: int, rate: float, gen: torch.Gene
                         device) -> torch.Tensor:
     """GFTE's attention-dropout keep mask [b, heads, t, t]: the port's dropout
     hash (``kernels/flash_dropout.py::keep_mask``) under an int32 seed drawn
-    from ``gen``, as the memory attention draws its seed."""
-    seed = int(torch.randint(-(2**31), 2**31, (), generator=gen))
-    return keep_mask(b * heads, t, t, seed, rate, device).reshape(b, heads, t, t)
+    on the device from ``gen``, as the memory attention draws its seed."""
+    return keep_mask(b * heads, t, t, draw_seed(gen, device), rate, device).reshape(b, heads, t, t)
 
 
 def gp_gumbel(b: int, t: int, gen: torch.Generator | None, device) -> torch.Tensor:
-    """GP's Gumbel noise [b, t] f32, drawn on the CPU generator ``gen`` and
-    moved to ``device`` (``jax.random.gumbel``: -log(-log(u)), u in [tiny, 1))."""
-    u = torch.rand((b, t), generator=gen, dtype=torch.float32).clamp_min(torch.finfo(torch.float32).tiny)
+    """GP's Gumbel noise [b, t] f32, drawn from ``gen`` on its device (the
+    training step's, the model's) and moved to ``device``
+    (``jax.random.gumbel``: -log(-log(u)), u in [tiny, 1))."""
+    dev = torch.device(device) if gen is None else gen.device
+    u = torch.rand((b, t), generator=gen, dtype=torch.float32, device=dev).clamp_min(torch.finfo(torch.float32).tiny)
     return (-torch.log(-torch.log(u))).to(device)
 
 

@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from us_video_medsam2_tpu_torch.kernels.flash_attention import NEG_INF
-from us_video_medsam2_tpu_torch.kernels.flash_dropout import flash_attention_train
+from us_video_medsam2_tpu_torch.kernels.flash_dropout import draw_seed, flash_attention_train
 from us_video_medsam2_tpu_torch.models.layers import MLP, LayerNorm, Linear
 from us_video_medsam2_tpu_torch.ops.attention import attention_plain, sdpa
 from us_video_medsam2_tpu_torch.ops.posenc import apply_rope_halfsplit
@@ -60,7 +60,8 @@ class RoPEAttention(Attention):
     unrotated object-pointer keys (``ops.posenc.rope_key_tables``). With
     ``dropout`` > 0 and ``deterministic`` False (training), the attention
     weights are dropped after the softmax with a keep mask made from an int32
-    seed drawn from ``gen`` (transformer.py:340-344). With ``landmark_pool``
+    seed that ``draw_seed`` draws from ``gen`` on the device
+    (transformer.py:340-344). With ``landmark_pool``
     > 1 and more rotated keys (``n_rope``, memory slots of ``spatial_hw``
     tokens) than queries, the attention is ``landmark_attention``."""
 
@@ -79,8 +80,7 @@ class RoPEAttention(Attention):
         if landmark_pool > 1 and n_rope > q.shape[2]:
             out = landmark_attention(q, k, v, n_rope, landmark_pool, spatial_hw, key_mask, landmark_variant)
         elif self.dropout > 0.0 and not deterministic:
-            seed = int(torch.randint(-(2**31), 2**31, (), generator=gen))
-            out = flash_attention_train(q, k, v, key_mask, seed, self.dropout)
+            out = flash_attention_train(q, k, v, key_mask, draw_seed(gen, q.device), self.dropout)
         else:
             out = sdpa(q, k, v, key_mask)
         return self.out_proj(_merge(out))

@@ -63,9 +63,12 @@ class ViTDet(nn.Module):
         later training step may save it for backward (as ``ops/posenc.py``'s
         tables). With a gradient (training), or when the parameter is an
         inference tensor (which has no version to key on), it is computed on
-        every call."""
+        every call; so it is too in a CUDA graph captured from a module in
+        training mode (the training step's eval capture), whose replays
+        follow the weights that the train step's replays update in place."""
         p = self.pos_embed
-        if (torch.is_grad_enabled() and p.requires_grad) or p.is_inference():
+        if ((torch.is_grad_enabled() and p.requires_grad) or p.is_inference()
+                or (self.training and p.is_cuda and torch.cuda.is_current_stream_capturing())):
             return self._resized_pos_embed(hw, dtype)
         key = (tuple(hw), dtype)
         kept = self._pe_tables.get(key)

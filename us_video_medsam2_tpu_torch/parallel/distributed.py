@@ -14,7 +14,9 @@ normalises by: ``all_reduce_sum`` of the valid-object count gives every
 rank the global ``num_objects``, each rank's loss is then its share of the
 global loss, and ``all_reduce_gradients`` sums (not averages) the
 gradients. No ``DistributedDataParallel`` wrapper: the optimizer takes a
-dict of gradients. Sharded serving is not here.
+dict of gradients. On the card these NCCL collectives are captured with the
+rest of the training step (``training/train_step.py``) and replayed with
+it; gloo on the CPU runs them eagerly. Sharded serving is not here.
 """
 
 from __future__ import annotations

@@ -166,9 +166,11 @@ def spectral_temporal_regularizer(logits, alpha=0.1, beta=0.05, phase_weight=0.0
         mid = sig[:, 2:] + sig[:, :-2] - 2 * sig[:, 1:-1]
         x1 = torch.cat([torch.zeros_like(sig[:, :1]), mid, torch.zeros_like(sig[:, :1])], 1)
         spectral = ((1.0 * sig + (-2.0) * x1) ** 2).mean()
-        mask = torch.fft.rfftfreq(t, d=1.0) > freq_cutoff
-        if bool(mask.any()):
-            spectral = spectral + 0.5 * (torch.fft.rfft(sig, dim=1)[:, mask.to(sig.device)].abs() ** 2).mean()
+        # the frequencies past the cutoff: a tail of rfftfreq's increasing
+        # bins, sliced by a host index (no boolean gather, which reads back)
+        high = int((torch.fft.rfftfreq(t, d=1.0) <= freq_cutoff).sum())
+        if high < t // 2 + 1:
+            spectral = spectral + 0.5 * (torch.fft.rfft(sig, dim=1)[:, high:].abs() ** 2).mean()
 
     srt = torch.sort(wp.reshape(t, -1), dim=1).values
     wasserstein = (srt[1:] - srt[:-1]).abs().mean()

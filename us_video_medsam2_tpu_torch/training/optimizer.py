@@ -7,8 +7,14 @@ update over the model's named parameters in the order of the JAX
 ``update_fn``: clip the gradients to the global norm, Adam moments with
 optax's bias correction and eps outside the square root, then
 ``p -= lr · mult · (adam + wd · p)`` with decoupled weight decay. The step
-count, the schedules and the bias corrections are f32, as in the JAX
-package. Parameters are updated in place.
+count and the micro-step are int32 tensors on the parameters' device, and
+the schedules and the bias corrections are computed from them there in
+f32, as optax computes them from its count: an update reads nothing from
+the host and writes nothing to it, so the training step can be captured
+once and replayed (``train_step.py``). Gradient accumulation is
+``optax.MultiSteps``' select on the device: every call adds to the running
+mean, and the update is computed and kept where the micro-step closes the
+group. Parameters are updated in place.
 
 ``state_dict`` / ``load_state_dict`` hold the moments, the step count and,
 with ``accum_steps`` > 1, the micro-step and the accumulator, in the layout
@@ -92,7 +98,10 @@ def compute_param_meta(named_params: dict, cfg: OptimConfig) -> dict:
 
 
 def cosine_value(start, end, frac):
-    return end + np.float32(0.5) * (start - end) * (np.float32(1.0) + np.cos(np.float32(np.pi) * frac))
+    """The cosine schedule at ``frac`` in f32: numpy f32 scalars, or an f32
+    tensor ``frac`` (``start`` and ``end`` numpy f32)."""
+    cos = torch.cos if isinstance(frac, torch.Tensor) else np.cos
+    return end + np.float32(0.5) * (start - end) * (np.float32(1.0) + cos(np.float32(np.pi) * frac))
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -110,52 +119,93 @@ class AdamW:
         self.meta = compute_param_meta(self.params, cfg)
         self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-        self.count = 0  # optimizer steps taken
-        self.mini_step = 0
+        dev = next(iter(self.params.values())).device if self.params else torch.device("cpu")
+        # optimizer steps taken, and the micro-step within the accumulation group
+        self.count_t = torch.zeros((), dtype=torch.int32, device=dev)
+        self.mini_step_t = torch.zeros((), dtype=torch.int32, device=dev)
         self.acc = {n: torch.zeros_like(p) for n, p in self.params.items()} if cfg.accum_steps > 1 else None
 
-    def lr_at(self, count: int):
+    @property
+    def count(self) -> int:
+        return int(self.count_t)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self.count_t.fill_(int(value))
+
+    @property
+    def mini_step(self) -> int:
+        return int(self.mini_step_t)
+
+    @mini_step.setter
+    def mini_step(self, value: int) -> None:
+        self.mini_step_t.fill_(int(value))
+
+    def state_tensors(self) -> list:
+        """Every tensor of the optimizer's state (what a captured step reads and writes)."""
+        out = [self.count_t, self.mini_step_t, *self.mu.values(), *self.nu.values()]
+        return out + (list(self.acc.values()) if self.acc is not None else [])
+
+    def lr_at(self, count):
+        """(base lr, vision lr) at ``count``: numpy f32 for an int, f32
+        tensors for an int tensor (the update's own, on the device)."""
         c = self.cfg
-        frac = np.clip(np.float32(count) / np.float32(max(c.total_steps, 1)), 0.0, 1.0).astype(np.float32)
         end = np.float32(c.lr_end_factor)
+        if isinstance(count, torch.Tensor):
+            frac = torch.clamp(count.float() / np.float32(max(c.total_steps, 1)), 0.0, 1.0)
+        else:
+            frac = np.clip(np.float32(count) / np.float32(max(c.total_steps, 1)), 0.0, 1.0).astype(np.float32)
         return (cosine_value(np.float32(c.base_lr), np.float32(c.base_lr) * end, frac),
                 cosine_value(np.float32(c.vision_lr), np.float32(c.vision_lr) * end, frac))
 
     @torch.no_grad()
     def step(self, grads: dict) -> None:
         """Apply one (micro-)step of gradients ``grads`` (name -> tensor)."""
-        if self.acc is not None:
-            for n, g in grads.items():  # running mean (Welford), as optax.MultiSteps
-                self.acc[n] += (g - self.acc[n]) / (self.mini_step + 1)
-            self.mini_step = (self.mini_step + 1) % self.cfg.accum_steps
-            if self.mini_step:
-                return
-            grads = self.acc
-        self._update(grads)
-        if self.acc is not None:
-            for a in self.acc.values():
-                a.zero_()
+        if self.acc is None:
+            self._update(grads, None)
+            return
+        mini = self.mini_step_t
+        for n, g in grads.items():  # running mean (Welford), as optax.MultiSteps
+            self.acc[n] += (g - self.acc[n]) / (mini + 1).float()
+        emit = mini == self.cfg.accum_steps - 1  # this micro-step closes the group
+        self._update(self.acc, emit)
+        for a in self.acc.values():
+            a.copy_(torch.where(emit, torch.zeros_like(a), a))
+        mini.copy_(torch.remainder(mini + 1, self.cfg.accum_steps))
 
-    def _update(self, grads: dict) -> None:
+    def _update(self, grads: dict, emit) -> None:
+        """The update from ``grads``; with ``emit`` (a 0-d bool tensor) it is
+        kept only where ``emit`` holds, and the state left as it was else."""
         c = self.cfg
         norm = global_norm(grads.values())
         keep = norm < c.clip_norm
-        lr0, lr1 = self.lr_at(self.count)
-        self.count += 1
-        bc1 = 1 - np.float32(c.b1) ** np.float32(self.count)
-        bc2 = 1 - np.float32(c.b2) ** np.float32(self.count)
+        lr0, lr1 = self.lr_at(self.count_t)
+        count = (self.count_t + 1).float()
+        bc1 = 1 - torch.pow(torch.full_like(count, c.b1), count)
+        bc2 = 1 - torch.pow(torch.full_like(count, c.b2), count)
+
+        def put(dst, new):
+            dst.copy_(new if emit is None else torch.where(emit, new, dst))
+
+        def step_param(p, delta):  # p - delta; p.sub_ gives the same bits
+            if emit is None:
+                p.sub_(delta)
+            else:
+                p.copy_(torch.where(emit, p - delta, p))
+
         for n, p in self.params.items():
             g = grads[n].float()
             g = torch.where(keep, g, g / norm * c.clip_norm)
             mu, nu = self.mu[n], self.nu[n]
-            mu.copy_((1 - c.b1) * g + c.b1 * mu)
-            nu.copy_((1 - c.b2) * g.square() + c.b2 * nu)
-            u = (mu / float(bc1)) / (torch.sqrt(nu / float(bc2)) + c.eps)
+            put(mu, (1 - c.b1) * g + c.b1 * mu)
+            put(nu, (1 - c.b2) * g.square() + c.b2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + c.eps)
             m = self.meta[n]
-            lr = float(np.float32(lr1 if m.group == 1 else lr0) * np.float32(m.mult))
+            lr = (lr1 if m.group == 1 else lr0) * np.float32(m.mult)
             if m.wd_on:
                 u = u + c.weight_decay * p
-            p.add_(-lr * u)
+            step_param(p, lr * u)
+        self.count_t.add_(1 if emit is None else emit.int())
 
     def _tree(self, tensors: dict, cfg, buffers: dict) -> dict:
         from us_video_medsam2_tpu_torch.core.weights import to_jax_params

@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``training/prompt_sampling.py`` (reference
 sam2/modeling/sam2_utils.py:156-323): noised ground-truth boxes, uniform
 clicks in the error region, and RITM centre clicks through an iterative
 chamfer distance transform. Every random draw comes from the explicit
-``torch.Generator`` the caller passes (of the masks' device). Under data
+``torch.Generator`` the caller passes (of the masks' device: the training
+step's own), and nothing is read back to the host. Under data
 parallelism ``shard`` = (offset, total) says where this process's objects
 lie among the global batch's: a draw is made for all ``total`` objects and
 this process's rows taken, so every rank draws what the single-process step
@@ -50,7 +51,8 @@ def sample_box_points(masks: torch.Tensor, gen: torch.Generator, noise: float = 
     """[B, 1, H, W] -> coords [B, 2, 2], labels [B, 2] (2 and 3: box corners)."""
     b, _, h, w = masks.shape
     box = mask_to_box(masks)
-    labels = torch.tensor([[2, 3]], dtype=torch.int32, device=masks.device).repeat(b, 1)
+    # made on the device (a host-built tensor would be a copy from the host, which a capture cannot hold)
+    labels = (torch.arange(2, dtype=torch.int32, device=masks.device) + 2).repeat(b, 1)
     if noise > 0:
         bw = box[..., 2] - box[..., 0]
         bh = box[..., 3] - box[..., 1]
@@ -58,7 +60,7 @@ def sample_box_points(masks: torch.Tensor, gen: torch.Generator, noise: float = 
         max_dy = torch.clamp(bh * noise, max=noise_bound)
         bn = 2 * rand_rows((b, 1, 4), gen, masks.device, shard) - 1
         box = box + bn * torch.stack([max_dx, max_dy, max_dx, max_dy], dim=-1)
-        bounds = torch.tensor([w - 1, h - 1, w - 1, h - 1], dtype=torch.float32, device=masks.device)
+        bounds = torch.where(torch.arange(4, device=masks.device) % 2 == 0, w - 1, h - 1).float()
         box = torch.clamp(box, min=torch.zeros_like(bounds), max=bounds)
     return box.reshape(b, 2, 2), labels
 

@@ -1,11 +1,28 @@
 """Training-time forward: interactive-prompt simulation + video tracking.
 
 Counterpart of the JAX package's ``training/train_model.py`` (reference
-training/model/sam2.py:25-541, SAM2Train). The JAX package draws its plan on
-the device and branches with ``lax.cond`` / ``lax.switch`` / ``lax.scan``;
-here the plan (prompt mode, initial conditioning frames, processing order,
-corrected frames) is drawn on the host from an explicit ``torch.Generator``
-and the branches are Python control flow. Kept from the JAX package:
+training/model/sam2.py:25-541, SAM2Train). As in the JAX package, the whole
+forward stays on the device and runs the same operations whatever the
+plan, so one captured program covers every simulation outcome
+(``train_step.py`` captures it in a CUDA graph on the card):
+
+- the plan (prompt mode, initial conditioning frames, processing order,
+  corrected frames) is drawn on the device from the step's generator
+  (``sample_plan``, JAX ``_sample_plan``) and stays there as tensors;
+- the frame loop (JAX's ``lax.scan`` over the processing order, the bank as
+  its carry) runs over positions 0..T-1, and the frame ``order[i]`` is a
+  device index: features and masks are taken by ``index_select`` and the
+  memory bank is read and written at a tensor index;
+- each ``lax.switch`` / ``lax.cond`` of the JAX step is a selection
+  (``torch.where``) between branches that both ran: the prompt modes the
+  config can draw (a probability of 0 or 1 rules a mode out), the initial
+  and the tracked branch at positions 1..n_init_max-1 (position 0 is always
+  an initial frame and every later position always a tracked one), and
+  every correction click, whose result is kept where the frame is corrected
+  (JAX's ``lambda c: c`` else). The branch not taken gets an exact zero
+  gradient through the selection, and every branch sees finite inputs.
+
+Kept from the JAX package:
 
 - the image encoder runs once over all T·B frames;
 - point prompts live in a fixed [Bo, 2 + num_correction_pt, 2] slot array
@@ -51,50 +68,87 @@ class TrainSimConfig:
 
 @dataclass
 class Plan:
-    mode: int  # 0 point, 1 box, 2 mask
-    use_pt: bool
-    n_init: int
-    is_init: list  # [T] bool, by frame
-    order: list  # processing order of the frames
-    should_correct: list  # [T] bool, by frame
+    """The step's prompt plan, tensors on the device (JAX ``_sample_plan``'s dict)."""
+
+    mode: torch.Tensor  # 0-d long: 0 point, 1 box, 2 mask
+    use_pt: torch.Tensor  # 0-d bool
+    n_init: torch.Tensor  # 0-d long: initial conditioning frames
+    is_init: torch.Tensor  # [T] bool, by frame
+    order: torch.Tensor  # [T] long: the processing order of the frames
+    should_correct: torch.Tensor  # [T] bool, by frame
+
+
+def plan_limits(sim: TrainSimConfig, t: int, is_training: bool) -> tuple:
+    """(p_pt, n_init_max, n_corr_max) of a T-frame step (reference
+    prepare_prompt_inputs, model/sam2.py:146-267): a one-frame video always
+    takes one clicked or boxed initial frame."""
+    if t == 1:
+        return 1.0, 1, 1
+    if is_training:
+        return sim.prob_to_use_pt_input, sim.num_init_cond_frames, sim.num_frames_to_correct
+    return sim.prob_to_use_pt_input_for_eval, sim.num_init_cond_frames_for_eval, sim.num_frames_to_correct_for_eval
+
+
+def possible_modes(sim: TrainSimConfig, t: int, is_training: bool) -> tuple:
+    """The prompt modes a plan can draw: ``uniform < p`` never holds at p 0
+    and always at p 1, so those rule a mode out."""
+    p_pt = plan_limits(sim, t, is_training)[0]
+    p_box = sim.prob_to_use_box_input
+    modes = []
+    if p_pt > 0.0:
+        modes += ([0] if p_box < 1.0 else []) + ([1] if p_box > 0.0 else [])
+    return tuple(modes + ([2] if p_pt < 1.0 else []))
+
+
+def draw_plan_uniforms(gen: torch.Generator, t: int, device) -> dict:
+    """The plan's uniform draws in [0, 1), f32, on ``device`` (one draw of
+    2·T + 4): scalars pt, box, n_init, n_corr and [T] vectors init, corr."""
+    u = torch.rand(2 * t + 4, generator=gen, device=device)
+    return {"pt": u[0], "box": u[1], "n_init": u[2], "n_corr": u[3], "init": u[4: 4 + t], "corr": u[4 + t:]}
 
 
 def _rank(x: torch.Tensor) -> torch.Tensor:
     return torch.argsort(torch.argsort(x, stable=True), stable=True)
 
 
-def sample_plan(gen: torch.Generator, sim: TrainSimConfig, t: int, is_training: bool) -> Plan:
-    """The prompt plan (reference prepare_prompt_inputs, model/sam2.py:146-267)."""
-    p_pt = sim.prob_to_use_pt_input if is_training else sim.prob_to_use_pt_input_for_eval
-    n_init_max = sim.num_init_cond_frames if is_training else sim.num_init_cond_frames_for_eval
-    n_corr_max = sim.num_frames_to_correct if is_training else sim.num_frames_to_correct_for_eval
-    if t == 1:
-        p_pt, n_init_max, n_corr_max = 1.0, 1, 1
+def _randint(u: torch.Tensor, lo, hi: int) -> torch.Tensor:
+    """An int uniform in [lo, hi) from a uniform ``u`` in [0, 1) (``lo`` an
+    int or a 0-d long tensor)."""
+    return torch.clamp(lo + torch.floor(u * (hi - lo)).long(), max=hi - 1)
 
-    def uniform(n=()):
-        return torch.rand(n, generator=gen, dtype=torch.float64)
 
-    use_pt = bool(uniform() < p_pt)
-    use_box = bool(uniform() < sim.prob_to_use_box_input)
-    mode = (1 if use_box else 0) if use_pt else 2
+def plan_from_uniforms(u: dict, sim: TrainSimConfig, t: int, is_training: bool) -> Plan:
+    """JAX ``_sample_plan`` over given uniforms (``draw_plan_uniforms``):
+    bernoulli(p) is ``u < p`` and randint(lo, hi) ``lo + floor(u·(hi - lo))``."""
+    p_pt, n_init_max, n_corr_max = plan_limits(sim, t, is_training)
+    dev = u["pt"].device
+    use_pt = u["pt"] < p_pt
+    use_box = u["box"] < sim.prob_to_use_box_input
+    mode = torch.where(use_pt, torch.where(use_box, 1, 0), 2).long()
     if sim.rand_init_cond_frames and n_init_max > 1 and is_training:
-        n_init = int(torch.randint(1, n_init_max + 1, (), generator=gen))
+        n_init = _randint(u["n_init"], 1, n_init_max + 1)
     else:
-        n_init = n_init_max
+        n_init = torch.full((), n_init_max, dtype=torch.long, device=dev)
     # init frames: frame 0 + (n_init - 1) random others
-    r = uniform((t,))
-    r[0] = -1.0
+    r = torch.cat([torch.full((1,), -1.0, device=dev), u["init"][1:]])
     is_init = _rank(r) < n_init
-    order = torch.argsort(torch.where(is_init, 0, 1) * t + torch.arange(t), stable=True)
+    order = torch.argsort(torch.where(is_init, 0, 1) * t + torch.arange(t, device=dev), stable=True)
     # corrected frames: the init frames + a random count of others (point input only)
     if sim.rand_frames_to_correct and n_corr_max > 1 and is_training:
-        n_corr = max(int(torch.randint(n_init, n_corr_max + 1, (), generator=gen)), n_init)
+        n_corr = torch.maximum(_randint(u["n_corr"], n_init, n_corr_max + 1), n_init)
     else:
-        n_corr = max(n_corr_max, n_init)
-    r2 = torch.where(is_init, torch.inf, uniform((t,)))
+        n_corr = torch.clamp(n_init, min=n_corr_max)
+    r2 = torch.where(is_init, torch.full_like(u["corr"], float("inf")), u["corr"])
     extra = _rank(r2) < (n_corr - n_init)
     should_correct = (is_init | extra) & use_pt
-    return Plan(mode, use_pt, n_init, is_init.tolist(), order.tolist(), should_correct.tolist())
+    return Plan(mode, use_pt, n_init, is_init, order, should_correct)
+
+
+def sample_plan(gen: torch.Generator, sim: TrainSimConfig, t: int, is_training: bool, device=None) -> Plan:
+    """The prompt plan (reference prepare_prompt_inputs, model/sam2.py:146-267),
+    drawn from ``gen`` on ``device`` (``gen``'s by default): nothing is read
+    back to the host."""
+    return plan_from_uniforms(draw_plan_uniforms(gen, t, device or gen.device), sim, t, is_training)
 
 
 def _tile3(x: torch.Tensor) -> torch.Tensor:
@@ -124,15 +178,22 @@ def _stack(xs: list, like: torch.Tensor) -> torch.Tensor:
     return torch.stack(xs) if xs else like.new_zeros((0, *like.shape))
 
 
+def _select(cond: torch.Tensor, a: dict, b: dict) -> dict:
+    """``a`` where the 0-d bool ``cond`` holds, else ``b``, key by key (a
+    branch of ``lax.cond`` / ``lax.switch`` that both sides ran)."""
+    return {k: torch.where(cond, a[k], b[k]) for k in a}
+
+
 def train_forward(model: SAM2Model, gen: torch.Generator, images: torch.Tensor, masks: torch.Tensor,
-                  sim: TrainSimConfig, is_training: bool = True, shard=None):
+                  sim: TrainSimConfig, is_training: bool = True, shard=None, plan: Plan | None = None):
     """images [T, B, H, W, 3] normalized, masks [T, B, O, H, W] bool, on the
-    model's device; ``gen`` a CPU generator that draws the plan, the noise
-    generator's seed, the temporal fusion's draws and the attention-dropout
-    seeds. ``shard`` (offset, total): where these B·O objects lie among the
+    model's device; ``gen`` a generator on that device that draws the plan,
+    the prompt noise, the temporal fusion's draws and the attention-dropout
+    seeds. ``plan``: a given plan (JAX's, in the tests) instead of a drawn
+    one. ``shard`` (offset, total): where these B·O objects lie among the
     global batch's under data parallelism (``prompt_sampling``). Returns
     (stacked outputs by processing position, final logits by frame
-    [T, Bo, H, W], the plan)."""
+    [T, Bo, H, W], the plan). Nothing is read back to the host."""
     cfg = model.cfg
     t, b, h, w, _ = images.shape
     o = masks.shape[2]
@@ -141,8 +202,11 @@ def train_forward(model: SAM2Model, gen: torch.Generator, images: torch.Tensor, 
     n_corr_pts = sim.num_correction_pt_per_frame
     p_slots = 2 + n_corr_pts
     pt_method = "uniform" if is_training else sim.pt_sampling_for_eval
-    plan = sample_plan(gen, sim, t, is_training)
-    noise = torch.Generator(dev).manual_seed(int(torch.randint(2**62, (), generator=gen)))
+    n_init_max = plan_limits(sim, t, is_training)[1]
+    modes = possible_modes(sim, t, is_training)
+    clicks = n_corr_pts if plan_limits(sim, t, is_training)[0] > 0.0 else 0  # no point input: no correction
+    if plan is None:
+        plan = sample_plan(gen, sim, t, is_training, dev)
 
     fpn = model.forward_image(images.reshape(t * b, h, w, 3), deterministic=not is_training, num_frames=t,
                               gen=gen)["backbone_fpn"]
@@ -160,58 +224,80 @@ def train_forward(model: SAM2Model, gen: torch.Generator, images: torch.Tensor, 
 
     coords0 = torch.zeros(bo, p_slots, 2, device=dev)
     labels0 = -torch.ones(bo, p_slots, dtype=torch.int32, device=dev)
-    steps, finals = [], [None] * t
-    for i, ti in enumerate(plan.order):
-        top = top_all[ti]
-        hr = [x[ti] for x in hr_all] if hr_all is not None else None
-        gt = masks[ti].reshape(bo, 1, h, w)
-        if i < plan.n_init:
-            no_mem = model.no_mem_features(top)
-            if plan.mode == 2:
-                out = model.use_mask_as_output(top, hr, gt[:, 0, :, :, None].float())
-                step0 = _pack(out, no_mem, coords0, labels0)
-            else:
-                if plan.mode == 0:
-                    pts, lbls = get_next_point(gt, None, pt_method, noise, shard)
-                    n_pts = 1
-                else:
-                    pts, lbls = sample_box_points(gt, noise, shard=shard)
-                    n_pts = 2
-                c, lb = coords0.clone(), labels0.clone()
-                c[:, :n_pts], lb[:, :n_pts] = pts, lbls
-                step0 = _pack(heads(no_mem, c, lb, None, hr, plan.mode == 0), no_mem, c, lb)
-        else:
-            pix = model.condition_on_memory(ti, top, bank, t, is_training=is_training,
-                                            deterministic=not is_training, gen=gen)
-            step0 = _pack(heads(pix, coords0, labels0, None, hr, True), pix, coords0, labels0)
 
-        # correction clicks (reference _iter_correct_pt_sampling:448-541)
+    def prompted(pix, pts, lbls, hr, multimask):
+        c, lb = coords0.clone(), labels0.clone()
+        c[:, :pts.shape[1]], lb[:, :pts.shape[1]] = pts, lbls
+        return _pack(heads(pix, c, lb, None, hr, multimask), pix, c, lb)
+
+    def init_branch(top, hr, gt):  # JAX lax.switch over the modes the config can draw
+        no_mem = model.no_mem_features(top)
+        outs = {}
+        if 0 in modes:
+            outs[0] = prompted(no_mem, *get_next_point(gt, None, pt_method, gen, shard), hr, True)
+        if 1 in modes:
+            outs[1] = prompted(no_mem, *sample_box_points(gt, gen, shard=shard), hr, False)
+        if 2 in modes:
+            out = model.use_mask_as_output(top, hr, gt[:, 0, :, :, None].float())
+            outs[2] = _pack(out, no_mem, coords0, labels0)
+        step0 = outs[modes[-1]]
+        for m in reversed(modes[:-1]):
+            step0 = _select(plan.mode == m, outs[m], step0)
+        return step0
+
+    def track_branch(ti, top, hr):
+        pix = model.condition_on_memory(ti, top, bank, t, is_training=is_training,
+                                        deterministic=not is_training, gen=gen)
+        return _pack(heads(pix, coords0, labels0, None, hr, True), pix, coords0, labels0)
+
+    steps, final_high = [], []
+    for i in range(t):
+        ti = plan.order[i]  # a 0-d device index
+        at = ti.reshape(1)
+        top = top_all.index_select(0, at)[0]
+        hr = [x.index_select(0, at)[0] for x in hr_all] if hr_all is not None else None
+        gt = masks.index_select(0, at)[0].reshape(bo, 1, h, w)
+        should_correct = plan.should_correct.index_select(0, at)[0]
+        # position 0 is always an initial frame, positions from n_init_max on always tracked
+        init = init_branch(top, hr, gt) if i < n_init_max else None
+        track = track_branch(ti, top, hr) if i > 0 else None
+        if init is None or track is None:
+            step0 = init if track is None else track
+        else:
+            step0 = _select(plan.n_init > i, init, track)
+
+        # correction clicks (reference _iter_correct_pt_sampling:448-541): each
+        # runs, and its result is kept where the frame is corrected
         carry, corr = step0, []
         for j in range(n_corr_pts):
-            if plan.should_correct[ti]:
+            if j < clicks:
                 pred = carry["high"] > 0
                 if is_training and sim.prob_to_sample_from_gt > 0:
-                    if bool(torch.rand((), generator=gen) < sim.prob_to_sample_from_gt):
-                        pred = torch.zeros_like(pred)
-                pts, lbls = get_next_point(gt, pred, pt_method, noise, shard)
+                    pred = pred & ~(torch.rand((), generator=gen, device=dev) < sim.prob_to_sample_from_gt)
+                pts, lbls = get_next_point(gt, pred, pt_method, gen, shard)
                 c, lb = carry["coords"].clone(), carry["labels"].clone()
                 c[:, 2 + j], lb[:, 2 + j] = pts[:, 0], lbls[:, 0]
                 mask_in = carry["low"][:, 0, :, :, None]  # previous logits as the mask prompt
-                carry = _pack(heads(carry["pix"], c, lb, mask_in, hr, False), carry["pix"], c, lb)
+                clicked = _pack(heads(carry["pix"], c, lb, mask_in, hr, False), carry["pix"], c, lb)
+                carry = _select(should_correct, clicked, carry)
             corr.append(carry)
 
         maskmem = model.encode_memory(top, carry["high"], carry["score"], plan.use_pt, is_training)
-        is_cond = plan.is_init[ti] or (sim.add_all_frames_to_correct_as_cond and plan.should_correct[ti])
+        is_cond = plan.is_init.index_select(0, at)[0]
+        if sim.add_all_frames_to_correct_as_cond:
+            is_cond = is_cond | should_correct
         write_memory(bank, ti, maskmem.reshape(bo, -1, maskmem.shape[-1]), carry["obj_ptr"], is_cond)
-        finals[ti] = carry["high"][:, 0]
+        final_high.append(carry["high"][:, 0])
         steps.append({
             "step0_multimasks": step0["multimasks"], "step0_ious": step0["ious"],
             "step0_score": step0["score"],
             "corr_multimasks": _stack([s["multimasks"][:, :1] for s in corr], step0["multimasks"][:, :1]),
             "corr_ious": _stack([s["ious"][:, :1] for s in corr], step0["ious"][:, :1]),
             "corr_score": _stack([s["score"] for s in corr], step0["score"]),
-            "corr_valid": torch.full((n_corr_pts,), plan.should_correct[ti], device=dev),
+            "corr_valid": should_correct.reshape(1).expand(n_corr_pts),
             "target": gt[:, 0],
         })
     stacked = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
-    return stacked, torch.stack(finals), plan
+    # finals scattered back to frame order for the temporal loss
+    finals = torch.stack(final_high).index_select(0, torch.argsort(plan.order))
+    return stacked, finals, plan

@@ -11,9 +11,14 @@ iteration after a pre-emption signal, auto-resume from
 ``make_eval_step`` and the epoch's ETA in the log.
 
 Where it differs from the JAX trainer:
-- each step draws its plan and noise from a ``torch.Generator`` seeded from
-  the seed, the epoch and the iteration (the JAX trainer splits a
-  ``jax.random`` key); every rank seeds it alike;
+- each step is given a seed made from the seed, the epoch and the
+  iteration (``step_seed``; the JAX trainer splits a ``jax.random`` key),
+  alike on every rank: the step seeds its device generator with it (the
+  plan, the noise, the dropout seeds) and the device's default generator
+  with it and the rank (``train_step.seed_step``), so a resumed run draws
+  what an uninterrupted one draws;
+- on the card each step is one replay of the captured step
+  (``train_step.py``), and its metrics are read once after it;
 - a batch reaches the card through page-locked memory and non-blocking
   copies;
 - data parallelism is ``parallel/distributed.py``'s (``train_step.py``
@@ -24,8 +29,8 @@ Where it differs from the JAX trainer:
   ``core/build.py::load_params`` serves them.
 
 ``step_times`` keeps each step's (data s, step s): the host's wait for the
-loader's batch and the step up to its loss on the host; ``save_times`` each
-checkpoint write's seconds (rank 0).
+loader's batch and the step up to its metrics on the host; ``save_times``
+each checkpoint write's seconds (rank 0).
 """
 
 from __future__ import annotations
@@ -74,10 +79,16 @@ class TrainerConfig:
     checkpoint_signals: tuple = (signal.SIGTERM, signal.SIGUSR1)
 
 
-def step_generator(seed: int, epoch: int, it: int) -> torch.Generator:
-    """The CPU generator of iteration ``it`` of ``epoch``: the step's plan,
-    noise seed and dropout seeds."""
-    return torch.Generator().manual_seed((seed * 1_000_003 + epoch) * 100_003 + it)
+def step_seed(seed: int, epoch: int, it: int) -> int:
+    """The seed of iteration ``it`` of ``epoch`` (``train_step.seed_step``)."""
+    return (seed * 1_000_003 + epoch) * 100_003 + it
+
+
+def read_scalars(metrics: Dict, keys) -> Dict[str, float]:
+    """The 0-d ``metrics`` of ``keys`` that are there, as floats, read from
+    the device in one copy."""
+    keys = [k for k in keys if k in metrics]
+    return dict(zip(keys, torch.stack([metrics[k].float() for k in keys]).tolist()))
 
 
 class Trainer:
@@ -202,26 +213,22 @@ class Trainer:
         meters: Dict[str, AverageMeter] = {}
         data_time = AverageMeter("data_time")
         batch_time = AverageMeter("batch_time")
-        # the residual dropouts draw from torch's global generators: seeded by
-        # the epoch (and the rank: each draws for its own rows), an epoch is
-        # the same in a resumed run as in an uninterrupted one
-        torch.manual_seed((self.cfg.seed * 1_000_003 + epoch) * 1_009 + self.rank)
         t_last = time.monotonic()
         for it, batch in enumerate(self.train_loader.get_loader(epoch)):
             t_data = time.monotonic()
             data_time.update(t_data - t_last)
-            metrics = self.step_fn(self.state, self.to_device(batch), step_generator(self.cfg.seed, epoch, it))
-            core = float(metrics["core_loss"])
+            metrics = self.step_fn(self.state, self.to_device(batch), step_seed(self.cfg.seed, epoch, it))
+            values = read_scalars(metrics, self.LOSS_KEYS)  # the one read of the step's results
+            core = values["core_loss"]
             if not np.isfinite(core):
                 raise FloatingPointError(f"loss is {core} at epoch {epoch} iter {it}")  # NaN guard
-            for k in self.LOSS_KEYS:
-                if k in metrics:
-                    meters.setdefault(k, AverageMeter(k)).update(float(metrics[k]))
+            for k, v in values.items():
+                meters.setdefault(k, AverageMeter(k)).update(v)
             if self.tb is not None and it % self.cfg.log_freq == 0:
                 self.tb.add_scalar("Losses/train_all_loss", core, self.state.step)
                 for k in ("loss_mask", "loss_dice", "loss_iou", "loss_class", "loss_temporal"):
-                    if k in metrics:
-                        self.tb.add_scalar(f"Losses/{k}", float(metrics[k]), self.state.step)
+                    if k in values:
+                        self.tb.add_scalar(f"Losses/{k}", values[k], self.state.step)
             t_now = time.monotonic()
             self.step_times.append((t_data - t_last, t_now - t_data))
             batch_time.update(t_now - t_last)
@@ -243,8 +250,8 @@ class Trainer:
             self._eval_step = make_eval_step(self.train_cfg)
         meter = AverageMeter("val_core_loss")
         for it, batch in enumerate(self.val_loader.get_loader(epoch)):
-            losses = self._eval_step(self.model, self.to_device(batch), step_generator(7777, epoch, it))
-            meter.update(float(losses["core_loss"]))
+            losses = self._eval_step(self.model, self.to_device(batch), step_seed(7777, epoch, it))
+            meter.update(read_scalars(losses, ("core_loss",))["core_loss"])
         logging.info("epoch %d val loss %.4f", epoch, meter.avg)
         return {"val_core_loss": meter.avg}
 
