@@ -190,20 +190,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    every parameter group, and exact launch counts at replay (9
    window-attention, 12 LayerNorm and 12 MLP per step, 8 dropout flash
    forward and 8 backward at each position that runs the tracked branch,
-   every position but the first); from one saved state a replay against an
-   eager run of the body (loss, every gradient and the updated weights, the
-   same bits expected, ``GRAPH_REL_L2_TOL``; the eager run timed beside the
-   replays; the first call's seconds taken apart: eager run, capture
-   set-up, recording, instantiation), the eval step captured once into the
-   train step's memory pool with its launches exact, and with ``--profile``
-   one profiled step of each (device busy and idle share). Then one step
+   every position but the first: the step rematerialises its frame and
+   click bodies, and their recompute takes the dropout-flash forward's
+   saved outputs), each replay's device ms by CUDA events; from one saved
+   state, on a plan with point input, a replay and an eager run of the body
+   with rematerialisation against an eager run without it (loss, every
+   gradient and the updated weights, the same bits expected,
+   ``GRAPH_REL_L2_TOL``; both eager runs timed and their peak allocated
+   memory printed beside the graph pool; the first call's seconds taken
+   apart: eager run, capture set-up, recording, instantiation), the eval
+   step captured once into the train step's memory pool, adding nothing to
+   it, with its launches exact, and with ``--profile`` one profiled step of
+   each (device busy and idle share). Then one step
    (``HOST_T`` frames) with a fixed plan and memory-attention dropout off
    on the card (the body eagerly), once more on the card with both switches
    set through the captured step (one capture, one replay from the same
    state with no host sync, held against the first call's eager run as
-   above, exact qkv-window-attention and CXBlock counts at replay), and on
-   the host CPU (plain versions, f32): loss and whole-gradient agreement of
-   each card step with the host's. Then the
+   above, exact qkv-window-attention and CXBlock counts at replay: a frame
+   body's CXBlocks in its forward and its recompute), and on the host CPU
+   (plain versions, f32, without rematerialisation, in a child process
+   started after phase 3, ``HostRuns``): loss and whole-gradient agreement
+   of each card step with the host's. Then the
    same step with temporal fusion ``GFTE_FUSION`` (``tools/
    bench_train_step.py``'s default: GFTE over the top 3 FPN levels at 256
    channels; the same seeded weights, the fusion's constants at their JAX
@@ -243,7 +250,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    propagation, ``remove_object``, ``clear_all_prompts_in_frame`` on frame
    8, a re-prompt with ``prev_low_res_mask``, propagation forward and in
    reverse, every yielded frame of each object held against the same
-   sequence on the host CPU (plain versions, f32). Every run's launches are
+   sequence on the host CPU (plain versions, f32; run by ``HostRuns``' child
+   process beside the card's phases). Every run's launches are
    phase 4's per encoded and per tracked frame (a capture's warm-up counts
    as one frame of each);
 9. the entry points, ``sam2.1_hiera_t512`` at full width in bf16 with the
@@ -572,7 +580,14 @@ KERNEL_SYMBOLS = {
 }
 TRACE_ATTEMPTS = 3
 BUSY_REL_TOL = 5e-3  # the parsed trace's busy time against key_averages()' on the same profile
+# a training step's dropout-flash launches a tracked frame: the recompute of a
+# frame body takes the forward's saved (out, lse) (train_model.remat_policy),
+# so its forward kernel runs once, not twice
 PER_TRACKED_TRAIN_FRAME = {"flash_dropout_fwd": 8, "flash_dropout_bwd": 8}
+# a forward-only kernel inside a training step's frame body (the flash kernel
+# of memory attention at dropout 0, the fused CXBlocks of the memory encoding)
+# runs in the body's forward and again in its recompute (rematerialisation)
+REMAT_RUNS = 2
 # the device plan sampler: plans drawn, and JAX's probabilities for
 # TrainSimConfig() at T 4 (point input 0.5, always a box: mode box or mask;
 # n_init uniform in {1, 2}; with a box the corrected count is n_init plus a
@@ -602,10 +617,11 @@ LAUNCHER_TIMEOUT_S = 600
 
 
 # device memory the whole run needs free when it starts: its peak reserved
-# (phase 11 prints it; 32.604 GiB on an H100 since the training steps' CUDA
-# graphs keep their pools) with room for what the CUDA context, NCCL and the
-# kernels' library hold beside PyTorch's allocator; how long, and how often,
-# to wait for it (the run takes 15-17 minutes of the 20 it is given)
+# (phase 11 prints it; 22.2 GiB on an H100 with the training steps' CUDA
+# graphs, which keep their pools, rematerialising; 32.6 without) with room
+# for what the CUDA context, NCCL and the kernels' library hold beside
+# PyTorch's allocator; how long, and how often, to wait for it (the run
+# takes 12-15 minutes of the 20 it is given)
 MEMORY_NEED_GIB = 40
 MEMORY_WAIT_S = 120
 MEMORY_POLL_S = 5
@@ -2686,8 +2702,7 @@ def run_training(profile_dir=None, out_dir=None, measure_dir=None):
     import torch
 
     check_plan_frequencies()
-    torch.manual_seed(SEED)
-    model = build_train_model()
+    model = seeded_train_model()
     host_sd = {k: v.clone() for k, v in model.state_dict().items()}
     size = model.cfg.image_size
     total, walls, peak, plans, _ = timed_train_steps(model, "without temporal fusion", profile_dir)
@@ -2699,8 +2714,7 @@ def run_training(profile_dir=None, out_dir=None, measure_dir=None):
 
     log(f"  temporal fusion {GFTE_FUSION[0]} (channels {GFTE_FUSION[1]}, top {GFTE_FUSION[2]} FPN levels), "
         "the same step otherwise")
-    torch.manual_seed(SEED)
-    model = build_train_model(fusion=GFTE_FUSION)
+    model = seeded_train_model(GFTE_FUSION)
     gfte_sd = {k: v.clone() for k, v in model.state_dict().items()}
     _, gwalls, gpeak, _, _ = timed_train_steps(model, "GFTE", profile_dir, "train_step_gfte", plans,
                                                eager_and_eval=False)
@@ -2760,9 +2774,9 @@ def step_result(m, state) -> tuple:
             torch.cat([p.detach().float().reshape(-1) for p in state.model.parameters()]))
 
 
-def hold_same_step(label, seed, captured, eager) -> None:
+def hold_same_step(label, seed, captured, eager, vs="eager") -> None:
     """``step_result`` of a replay against that of an eager run of the
-    body from the same state and seed: same bits expected, held at
+    body (``vs``) from the same state and seed: same bits expected, held at
     GRAPH_REL_L2_TOL with max |d| printed."""
     import torch
 
@@ -2773,38 +2787,64 @@ def hold_same_step(label, seed, captured, eager) -> None:
         worst = max(worst, rel)
         parts.append(f"{what} rel-L2 {rel:.3e}, max |d| {float((c - e).abs().max()):.3e}"
                      f"{' (same bits)' if torch.equal(c, e) else ''}")
-    log(f"  {label}: captured vs eager from one state (seed {seed}): {'; '.join(parts)} "
+    log(f"  {label} vs {vs} from one state (seed {seed}): {'; '.join(parts)} "
         f"(tol {GRAPH_REL_L2_TOL}) {'ok' if worst <= GRAPH_REL_L2_TOL else 'FAIL'}")
     if worst > GRAPH_REL_L2_TOL:
-        raise AssertionError(f"{label}: the captured step and its eager body disagree")
+        raise AssertionError(f"{label}: the step and {vs} disagree")
 
 
-def hold_captured_against_eager(step, state, batch, seed, label) -> float:
+def point_plan_seed(seeds) -> int:
+    """The first of ``seeds`` whose step draws a plan with point input (a
+    step's plan is the first draw of its generator, ``seed_step``): its
+    correction clicks draw their uniforms inside the frame bodies."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.training.train_model import sample_plan
+
+    for seed in seeds:
+        gen = torch.Generator(device="cuda").manual_seed(seed % 2**63)
+        if bool(sample_plan(gen, train_config().sim, TRAIN_T, True).use_pt):
+            return seed
+    raise AssertionError(f"no plan with point input among the seeds {seeds[0]}..{seeds[-1]}")
+
+
+def hold_captured_against_eager(step, state, batch, seed, label) -> dict:
     """From one saved state (weights, moments, counts), one replay of the
-    captured step and one eager run of its body with the same seed
-    (``hold_same_step``). The state is the eager step's after it (the same
-    as the captured step's). Returns the eager run's seconds (host clock
-    around it and a synchronize)."""
+    captured step (which rematerialises the frame and click bodies), one
+    eager run of its body with rematerialisation and one without
+    (``train_forward(remat=False)``), each with the same seed: the replay
+    and the eager run with it held against the run without it
+    (``hold_same_step``: the same bits). The state is the last run's after
+    it (the same as the captured step's). Returns the eager runs' seconds
+    (host clock around each and a synchronize) and their peak allocated
+    device memory (max_memory_allocated over the run, with what was
+    allocated before it: the weights, moments and step graphs' pools), by
+    remat."""
     import torch
 
     opt = state.optimizer
     tensors = list(state.model.parameters()) + opt.state_tensors()
     saved = [t.detach().clone() for t in tensors]
-    res = {}
-    for how in ("captured", "eager"):
+    res, walls, peaks = {}, {}, {}
+    for how in ("captured", True, False):
         with torch.no_grad():
             for t, v in zip(tensors, saved):
                 t.copy_(v)
         torch.cuda.synchronize()
+        reset_peak_memory()
+        before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        m = (step if how == "captured" else step.eager)(state, batch, seed)
+        m = step(state, batch, seed) if how == "captured" else step.eager(state, batch, seed, remat=how)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        if how != "captured":
+            walls[how] = time.perf_counter() - t0
+            peaks[how] = (torch.cuda.max_memory_allocated(), before)
         res[how] = step_result(m, state)
         state.step -= 1
     state.step += 1
-    hold_same_step(label, seed, res["captured"], res["eager"])
-    return wall
+    hold_same_step(f"{label}, captured with remat", seed, res["captured"], res[False], "eager without remat")
+    hold_same_step(f"{label}, eager with remat", seed, res[True], res[False], "eager without remat")
+    return {"walls": walls, "peaks": peaks}
 
 
 def captured_fixed_step(state, cfg, batch, label):
@@ -2887,11 +2927,16 @@ def timed_train_steps(model, label, profile_dir=None, profile_label="train_step"
     in every parameter group and exact launch counts (``step_expected``,
     counted at replay); the BatchNorm buffers bit-identical after the steps.
     ``seeds``: the step seeds of an earlier run, whose plans the steps then
-    draw (a step's plan is its first draw). Then the captured step against
-    its eager body (``hold_captured_against_eager``, the eager run timed and
-    printed with ``eager_and_eval``); with ``eval_step`` (``eager_and_eval``
-    by default) the eval step: captured once, none after, its launches
-    exact. With
+    draw (a step's plan is its first draw). Each replay's device time: CUDA
+    events around the call (the batch's device copies, the seeding, the
+    replay). Then, on a plan with point input (``point_plan_seed``), the
+    captured step against its eager body with and without
+    rematerialisation (``hold_captured_against_eager``: the same bits; the
+    eager runs' seconds and peak allocated memory printed, the seconds of
+    the run with it kept with ``eager_and_eval``); with ``eval_step``
+    (``eager_and_eval`` by default) the eval step: captured once, none
+    after, its launches exact, its capture adding nothing to the pool the
+    train step's graph holds. With
     ``profile_dir``, one captured and one eager step run under torch.profiler
     (device busy, idle share); with ``trace_dir``, one captured step under
     ``utils/profiling.trace``, held against the launch counters
@@ -2913,19 +2958,22 @@ def timed_train_steps(model, label, profile_dir=None, profile_label="train_step"
     seeds = seeds or step_seeds(TRAIN_STEPS + 4)
 
     def timed(fn, seed, checked):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        events[0].record()
         with sync_errors() if checked else contextlib.nullcontext():
             m = fn(state, batch, seed)
+        events[1].record()
         torch.cuda.synchronize()
-        return m, time.perf_counter() - t0
+        return m, time.perf_counter() - t0, events[0].elapsed_time(events[1])
 
     total = {k: 0 for k in counters()}
-    walls = []
+    walls, dev_ms = [], []
     for i in range(TRAIN_STEPS + 1):  # step 0 runs the body eagerly and captures it
         if i == 1:
             reset_peak_memory()
-        (m, wall), counts = read_counts(lambda: timed(step, seeds[i], i > 0))
+        (m, wall, ms), counts = read_counts(lambda: timed(step, seeds[i], i > 0))
         expected = step_expected(counts, per_step, TRAIN_T)
         loss, gnorm = float(m["core_loss"]), float(m["grad_norm"])
         norms = group_norms(m["grads"])
@@ -2943,6 +2991,7 @@ def timed_train_steps(model, label, profile_dir=None, profile_label="train_step"
             raise AssertionError(f"step {i}: zero or non-finite gradient in parameter groups {bad}")
         if i > 0:
             walls.append(wall)
+            dev_ms.append(ms)
             total = {k: total[k] + counts[k] for k in total}
     peak = torch.cuda.max_memory_allocated()
     graph = step.captured.last
@@ -2952,21 +3001,28 @@ def timed_train_steps(model, label, profile_dir=None, profile_label="train_step"
         f"steps {[round(1e3 * w, 2) for w in walls]}); {capture_text(graph)}; "
         f"peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
     ewalls = []
-    (ewall,), counts = read_counts(lambda: (hold_captured_against_eager(step, state, batch, seeds[TRAIN_STEPS + 1],
-                                                                        label),))
-    if counts != {k: 2 * v for k, v in step_expected(counts, per_step, TRAIN_T).items()}:
-        raise AssertionError(f"{label}: a replay and an eager step launched {counts}")
+    point = point_plan_seed(step_seeds(64))
+    (held,), counts = read_counts(lambda: (hold_captured_against_eager(step, state, batch, point, label),))
+    if counts != {k: 3 * v for k, v in step_expected(counts, per_step, TRAIN_T).items()}:
+        raise AssertionError(f"{label}: a replay and two eager steps launched {counts}")
+    (pr, base), (pn, _) = held["peaks"][True], held["peaks"][False]
+    log(f"  {label}, rematerialisation: graph pool {graph.pool_bytes / 2**20:.1f} MiB; eager peak allocated "
+        f"{pr / 2**30:.3f} GiB with remat, {pn / 2**30:.3f} without ({(pr - base) / 2**30:.3f} / "
+        f"{(pn - base) / 2**30:.3f} above the {base / 2**30:.3f} GiB held before the step); eager "
+        f"{1e3 * held['walls'][True]:.2f} / {1e3 * held['walls'][False]:.2f} ms a step; replays median "
+        f"{1e3 * statistics.median(walls):.2f} ms, device {statistics.median(dev_ms):.2f} ms (CUDA events around "
+        f"each replay; {[round(x, 2) for x in dev_ms]}); launches a tracked frame "
+        f"{ {k: v for k, v in PER_TRACKED_TRAIN_FRAME.items()} } (the recompute takes the saved forward); "
+        f"{card_line()}")
     if eager_and_eval:
-        ewalls.append(ewall)
-        log(f"  {label}: the eager body {1e3 * ewall:.2f} ms a step against the replays' median "
-            f"{1e3 * statistics.median(walls):.2f} ms; {card_line()}")
+        ewalls.append(held["walls"][True])
     if step.captures != 1:
         raise AssertionError(f"{step.captures} captures after the eager steps")
     changed = [n for n, b in model.named_buffers() if not torch.equal(b.cpu(), bufs[n])]
     if changed:
         raise AssertionError(f"{label}: the training steps changed the buffers {changed[:4]}")
     if bufs:
-        log(f"  {len(bufs)} BatchNorm buffers bit-identical after {TRAIN_STEPS + 3} steps")
+        log(f"  {len(bufs)} BatchNorm buffers bit-identical after {TRAIN_STEPS + 4} steps")
 
     ev = make_eval_step(cfg)
     for i in range(3 if eval_step else 0):
@@ -2981,6 +3037,9 @@ def timed_train_steps(model, label, profile_dir=None, profile_label="train_step"
         log(f"  {label}: eval step: {ev.captures} capture in 3 calls (the replays without a host sync), launches "
             f"{ {k: v for k, v in want.items() if v} } a call; core_loss {core:.6f}; {capture_text(ev.captured.last)} "
             f"(the train step's pool shared)")
+        if ev.captured.last.pool_bytes:
+            raise AssertionError(f"{label}: the eval step's capture added "
+                                 f"{ev.captured.last.pool_bytes / 2**20:.1f} MiB to the train step's pool")
     del ev
 
     traced = None
@@ -3009,6 +3068,177 @@ def timed_train_steps(model, label, profile_dir=None, profile_label="train_step"
     return total, walls, peak, seeds, traced
 
 
+def fixed_train_config():
+    """The fixed-plan steps' config: mask prompts, one initial frame."""
+    from us_video_medsam2_tpu_torch.training.train_model import TrainSimConfig
+    from us_video_medsam2_tpu_torch.training.train_step import TrainConfig
+
+    cfg = train_config()
+    return TrainConfig(sim=TrainSimConfig(prob_to_use_pt_input=0.0, rand_init_cond_frames=False,
+                                          num_init_cond_frames=1), loss=cfg.loss, optim=cfg.optim)
+
+
+def seeded_train_model(fusion=None, name="sam2.1_hiera_t512"):
+    """``build_train_model`` from SEED, as phases 7 and 11 and the host
+    runs' child process make it."""
+    import torch
+
+    torch.manual_seed(SEED)
+    return build_train_model(fusion=fusion, name=name)
+
+
+def host_fixed_step(host_sd, fusion=None, name="sam2.1_hiera_t512", flops=False) -> dict:
+    """The fixed-plan step on the host CPU in f32 from ``host_sd``, the card
+    steps' reference: the body run eagerly without rematerialisation (on
+    the host the same bits as with it, tests/test_torch_train_remat.py;
+    so its FLOPs are the model's, without the recompute), under
+    ``utils/flops.fn_flops`` with ``flops``. Returns {"core_loss", "grads"
+    (f32, by name), "flops" or None, "seconds"}."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.training.train_step import create_train_state, make_train_step
+    from us_video_medsam2_tpu_torch.utils.flops import fn_flops
+
+    fixed = fixed_train_config()
+    st = create_train_state(build_train_model(host_sd, dropout=0.0, fusion=fusion, name=name), fixed, device="cpu",
+                            dtype=torch.float32)
+    t0 = time.perf_counter()
+    box = {}
+
+    def run():
+        box["m"] = make_train_step(fixed).eager(st, make_train_batch(HOST_T, st.model.cfg.image_size, "cpu"), SEED,
+                                                remat=False)
+
+    n = None
+    if flops:
+        n = fn_flops(run)
+    else:
+        run()
+    m = box["m"]
+    return {"core_loss": float(m["core_loss"]), "grads": {k: g.detach().float() for k, g in m["grads"].items()},
+            "flops": n, "seconds": time.perf_counter() - t0}
+
+
+def seeded_predictor_weights(name):
+    """Phase 4's seeded weights of ``name`` (the object-score head's output
+    bias at +10), as phase 8 and the host runs' child process make them:
+    (state dict, the model's config)."""
+    import torch
+
+    from us_video_medsam2_tpu_torch.core.build import build_sam2
+
+    model = build_sam2(name, seed=SEED)
+    with torch.no_grad():
+        model.sam_mask_decoder.obj_score_head.layers_2.bias.fill_(10.0)
+    return {k: v.clone() for k, v in model.state_dict().items()}, model.cfg
+
+
+# phase 8 (d)'s flags: the card's run with them, the unconstrained runs (card and host) without non_overlap_masks
+EDITING_FLAGS = dict(fill_hole_area=8, non_overlap_masks=True, clear_non_cond_mem_around_input=True,
+                     clear_non_cond_mem_for_multi_obj=True)
+
+
+def host_editing_run(host_sd, size, name="sam2.1_hiera_t512", builder=None) -> dict:
+    """Phase 8 (d)'s host run: the editing sequence on the host CPU (plain
+    versions, f32) without ``non_overlap_masks``. Returns {"frames"
+    ({(pass, frame): (object ids, logits)}), "ran", "seconds"}."""
+    import torch
+
+    if builder is None:
+        from us_video_medsam2_tpu_torch.inference.video_predictor import build_sam2_video_predictor as builder
+
+    host = builder(name, state_dict=host_sd, device="cpu", dtype=torch.float32,
+                   **dict(EDITING_FLAGS, non_overlap_masks=False))
+    video, _, masks = make_video(FRAMES, size, SEED)
+    t0 = time.perf_counter()
+    frames, ran = editing_sequence(host, video, blob_clicks(masks))
+    return {"frames": frames, "ran": ran, "seconds": time.perf_counter() - t0}
+
+
+# the host CPU's reference runs of phases 7, 8 and 11, in the order the
+# phases read them: the fixed-plan training steps ("step", preset, fusion,
+# FLOPs counted) and phase 8 (d)'s editing sequence ("editing", preset),
+# run by HostRuns' child process on HOST_THREADS of the host's cores while
+# the card's phases run
+HOST_RUNS = (("step", "sam2.1_hiera_t512", None, True), ("step", "sam2.1_hiera_t512", GFTE_FUSION, False),
+             ("editing", "sam2.1_hiera_t512", None, False), ("step", VIT, None, True))
+HOST_THREADS = 4
+
+
+def host_run_file(kind, name, fusion=None) -> str:
+    return f"{kind}_{name}_{fusion[0] if fusion else 'none'}.pt"
+
+
+def host_runs_child(work, runs) -> None:
+    """The child process of ``HostRuns``: each of ``runs`` (a JSON list of
+    HOST_RUNS' entries) from the seeded weights (``host_fixed_step``,
+    ``host_editing_run``), written to ``work`` as it ends."""
+    import torch
+
+    torch.set_num_threads(HOST_THREADS)
+    for kind, name, fusion, flops in json.loads(runs):
+        fusion = tuple(fusion) if fusion else None
+        if kind == "step":
+            r = host_fixed_step(seeded_train_model(fusion, name).state_dict(), fusion, name, flops)
+        else:
+            host_sd, cfg = seeded_predictor_weights(name)
+            r = host_editing_run(host_sd, cfg.image_size, name)
+            r["frames"] = {k: (ids, torch.from_numpy(rows)) for k, (ids, rows) in r["frames"].items()}
+        path = os.path.join(work, host_run_file(kind, name, fusion))
+        torch.save(r, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        log(f"host run {kind} {name}, fusion {fusion}: {r['seconds']:.1f} s")
+
+
+class HostRuns:
+    """The host's reference runs (``runs``, HOST_RUNS by default) in a child
+    process started beside the card's phases (``host_runs_child``, the card
+    hidden from it), each result a file in ``work``; ``result`` waits for
+    one. The child is stopped when the script exits."""
+
+    def __init__(self, work, runs=HOST_RUNS):
+        import atexit
+
+        os.makedirs(work, exist_ok=True)
+        for f in os.listdir(work):
+            os.remove(os.path.join(work, f))
+        self.work = work
+        self.log_path = os.path.join(work, "child.log")
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.host_runs_child(*sys.argv[1:])", work,
+                 json.dumps(runs)],
+                cwd=os.path.dirname(os.path.abspath(__file__)), env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                stdout=out, stderr=subprocess.STDOUT)
+        atexit.register(self.stop)
+
+    def result(self, kind, name, fusion=None) -> tuple:
+        """(the run's record, the seconds waited for it)."""
+        import torch
+
+        path = os.path.join(self.work, host_run_file(kind, name, fusion))
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None and not os.path.exists(path):
+                with open(self.log_path) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"the host runs' child exited {self.proc.returncode} before "
+                                     f"{os.path.basename(path)}: {tail}")
+            time.sleep(0.5)
+        r = torch.load(path)
+        if kind == "editing":
+            r["frames"] = {k: (ids, rows.numpy()) for k, (ids, rows) in r["frames"].items()}
+        return r, time.perf_counter() - t0
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+HOST_RUNNER = [None]  # main() starts HostRuns; without it the host runs are made in this process
+
+
 def fixed_plan_steps(host_sd, size, runs, fusion=None, what="", name="sam2.1_hiera_t512", per_step=PER_TRAIN_STEP,
                      measure_dir=None):
     """One step with a fixed plan and no memory-attention dropout for each of
@@ -3016,30 +3246,40 @@ def fixed_plan_steps(host_sd, size, runs, fusion=None, what="", name="sam2.1_hie
     switched on: the same function), each card step's loss and gradient
     held against the host's. "card, fused" runs through the captured step
     (``captured_fixed_step``: one capture, one replay with no host sync held
-    against the eager run, its qkv and CXBlock launches counted at replay),
-    the others are the step's body run eagerly (``TrainStep.eager``;
-    ``timed_train_steps`` holds the default captured step to its eager
-    body's bits). With ``measure_dir``, the "card" step runs
-    under ``utils/profiling.trace`` into that directory, held against the
-    launch counters (``per_step``, the flash kernel 8 a tracked frame; the
-    gate holds the first traced call, taken from the seeded weights), and
-    the "host" step under ``utils/flops.fn_flops``. Returns {"device_ms",
-    "flops"} of the step with ``measure_dir``, else None."""
+    against the eager run, its qkv and CXBlock launches counted at replay:
+    REMAT_RUNS x 2 CXBlocks a frame), "card" is the step's body run eagerly
+    (``TrainStep.eager``; ``timed_train_steps`` holds the default captured
+    step to its eager body's bits), "host" is ``host_fixed_step`` (from
+    HostRuns' child process when main() started it, which makes its
+    weights from SEED as the phases do). With ``measure_dir``, the "card"
+    step runs under ``utils/profiling.trace`` into that directory, held
+    against the launch counters (``per_step``, the flash kernel REMAT_RUNS
+    x 8 a tracked frame; the gate holds the first traced call, taken from
+    the seeded weights), and the "host" step's FLOPs are counted. Returns
+    {"device_ms", "flops"} of the step with ``measure_dir``, else None."""
     import torch
 
-    from us_video_medsam2_tpu_torch.training.train_model import TrainSimConfig
-    from us_video_medsam2_tpu_torch.training.train_step import TrainConfig, create_train_state, make_train_step
-    from us_video_medsam2_tpu_torch.utils.flops import fn_flops
+    from us_video_medsam2_tpu_torch.training.train_step import create_train_state, make_train_step
 
-    cfg = train_config()
-    fixed = TrainConfig(sim=TrainSimConfig(prob_to_use_pt_input=0.0, rand_init_cond_frames=False,
-                                           num_init_cond_frames=1), loss=cfg.loss, optim=cfg.optim)
+    fixed = fixed_train_config()
     res, measures = {}, None if measure_dir is None else {}
     for label, dev, dtype in runs:
+        t0 = time.perf_counter()
+        if label == "host":
+            if HOST_RUNNER[0] is not None:
+                r, waited = HOST_RUNNER[0].result("step", name, fusion)
+                where = f"in the child process beside the card's phases, waited {waited:.1f} s for it"
+            else:
+                r, where = host_fixed_step(host_sd, fusion, name, measure_dir is not None), "in this process"
+            if measure_dir is not None:
+                measures["flops"] = r["flops"]
+            res[label] = (r["core_loss"], r["grads"])
+            log(f"  {what}fixed-plan step, host ({dtype}, T {HOST_T}, without remat): core_loss "
+                f"{res[label][0]:.6f}, {r['seconds']:.1f} s {where}")
+            continue
         with fused_switches(label == "card, fused"):
             st = create_train_state(build_train_model(host_sd, dropout=0.0, fusion=fusion, name=name), fixed,
                                     device=dev, dtype=dtype)
-            t0 = time.perf_counter()
 
             def run():  # the body eagerly (timed_train_steps holds the default step's capture to its bits)
                 return make_train_step(fixed).eager(st, make_train_batch(HOST_T, size, dev), SEED)
@@ -3052,21 +3292,19 @@ def fixed_plan_steps(host_sd, size, runs, fusion=None, what="", name="sam2.1_hie
                                                 check_busy=False)
                 want = {k: 0 for k in counts}
                 want.update(per_step)
-                want["flash_attention"] = PER_TRACKED_FRAME["flash_attention"] * (HOST_T - 1)
+                # memory attention at dropout 0: the flash kernel, in each frame body's forward and recompute
+                want["flash_attention"] = REMAT_RUNS * PER_TRACKED_FRAME["flash_attention"] * (HOST_T - 1)
                 check_counts(f"{what}fixed-plan step, card, traced", counts, want)
                 measures["device_ms"] = sum(parsed[0].values()) / 1e3
-            elif measure_dir is not None and label == "host":
-                box = {}
-                measures["flops"] = fn_flops(lambda: box.update(m=run()))
-                m, counts = box["m"], {}
             else:
                 m, counts = read_counts(run)
         res[label] = (float(m["core_loss"]), {n: g.detach().float().cpu() for n, g in m["grads"].items()})
         log(f"  {what}fixed-plan step, {label} ({dtype}, T {HOST_T}): core_loss {res[label][0]:.6f}, "
             f"{time.perf_counter() - t0:.1f} s")
         if label == "card, fused":
-            # one batched encoder call; every frame's memory encoded once
-            want = {"qkv_window_attention": 9, "window_attention": 0, "cxblock": 2 * HOST_T}
+            # one batched encoder call; every frame's memory encoded in its body's forward and recompute
+            want = {"qkv_window_attention": 9, "window_attention": 0,
+                    "cxblock": REMAT_RUNS * PER_MEMORY_ENCODING["cxblock"] * HOST_T}
             got = {k: counts[k] for k in want}
             log(f"  fused step launches at replay {got}, expected {want}")
             if got != want:
@@ -3625,13 +3863,14 @@ def check_editing(name, builder, host_sd, per_encoded, size, on_card=True):
     """Phase 8 (d): the editing sequence on the card with ``non_overlap_masks``
     and the scrub on (for every object), again on the card without
     ``non_overlap_masks``, and on the host CPU without it (plain versions,
-    f32). The card's first run must be its second constrained (per pixel
-    only the row of the highest logit keeps it), bit for bit. Every yielded
-    frame of each live object of the unconstrained runs is held to the
-    card-vs-host gate; the constrained frames are held to it rank by rank
-    (the rows' logits sorted at each pixel), since with seeded weights the
-    objects' tracked logits nearly tie and which object keeps a pixel is a
-    rounding. On the card the launches of the first run are exact (2
+    f32; ``host_editing_run``, in HostRuns' child process when main()
+    started it and ``on_card``). The card's first run must be its second
+    constrained (per pixel only the row of the highest logit keeps it), bit
+    for bit. Every yielded frame of each live object of the unconstrained
+    runs is held to the card-vs-host gate; the constrained frames are held
+    to it rank by rank (the rows' logits sorted at each pixel), since with
+    seeded weights the objects' tracked logits nearly tie and which object
+    keeps a pixel is a rounding. On the card the launches of the first run are exact (2
     prompted frames encoded, frame 8 once more, the frame body once a frame
     run and once more per capture)."""
     import numpy as np
@@ -3641,10 +3880,8 @@ def check_editing(name, builder, host_sd, per_encoded, size, on_card=True):
 
     video, _, masks = make_video(FRAMES, size, SEED)
     clicks = blob_clicks(masks)
-    flags = dict(fill_hole_area=8, non_overlap_masks=True, clear_non_cond_mem_around_input=True,
-                 clear_non_cond_mem_for_multi_obj=True)
-    free_flags = dict(flags, non_overlap_masks=False)
-    card = builder(name, state_dict=host_sd, **flags)
+    free_flags = dict(EDITING_FLAGS, non_overlap_masks=False)
+    card = builder(name, state_dict=host_sd, **EDITING_FLAGS)
     captures = card.graphs.captures
     (got, ran), launches = read_counts(lambda: editing_sequence(card, video, clicks))
     made = card.graphs.captures - captures
@@ -3663,10 +3900,13 @@ def check_editing(name, builder, host_sd, per_encoded, size, on_card=True):
         f"bit for bit")
     if same != len(got) or list(free) != list(got):
         raise AssertionError("the card's non-overlapping masks are not its unconstrained masks constrained")
-    host = builder(name, state_dict=host_sd, device="cpu", dtype=torch.float32, **free_flags)
-    t0 = time.perf_counter()
-    want, ran_host = editing_sequence(host, video, clicks)
-    log(f"  host run of the sequence {time.perf_counter() - t0:.1f} s")
+    if HOST_RUNNER[0] is not None and on_card:
+        r, waited = HOST_RUNNER[0].result("editing", name)
+        where = f"in the child process beside the card's phases, waited {waited:.1f} s for it"
+    else:
+        r, where = host_editing_run(host_sd, size, name, builder), "in this process"
+    want, ran_host = r["frames"], r["ran"]
+    log(f"  host run of the sequence {r['seconds']:.1f} s {where}")
     if ran_host != ran or list(want) != list(got):
         raise AssertionError(f"card and host yielded other frames: {ran} vs {ran_host}")
     log("  unconstrained, each live object:")
@@ -3688,18 +3928,11 @@ def run_long_video_and_editing(name, builder, per_encoded, card, profile_dir, ou
     offloaded and streamed, (c) two lengths of one bucket, (d) the editing
     sequence, each with the seeded weights of phase 4 (the object-score
     head's output bias at +10)."""
-    import torch
-
-    from us_video_medsam2_tpu_torch.core.build import build_sam2
-
-    model = build_sam2(name, seed=SEED)
-    with torch.no_grad():
-        model.sam_mask_decoder.obj_score_head.layers_2.bias.fill_(10.0)
-    host_sd = {k: v.clone() for k, v in model.state_dict().items()}
-    size = model.cfg.image_size
+    host_sd, cfg = seeded_predictor_weights(name)
+    size = cfg.image_size
     video, click, _ = make_video(FRAMES, size, SEED)
     log(f"  (a) {name}'s seeded weights as a reference-name .pt under \"model\", loaded through ckpt_path=")
-    predictor = check_checkpoint_load(name, builder, host_sd, model.cfg, video, click, per_encoded, out_dir)
+    predictor = check_checkpoint_load(name, builder, host_sd, cfg, video, click, per_encoded, out_dir)
     log("  (b) a long study: uint8, offloaded to the host, streamed in chunks, against the video resident")
     check_long_video(predictor, per_encoded, size, card, profile_dir, on_card, **(long_video or {}))
     log(f"  (c) lengths {list(bucket_lengths)} with t_bucket='auto' against their exact-shape sessions")
@@ -4785,8 +5018,7 @@ def run_vit_training(card, work, corpus) -> dict:
     from us_video_medsam2_tpu_torch.inference.video_predictor import build_efficienttam_video_predictor
 
     t_phase = time.perf_counter()
-    torch.manual_seed(SEED)
-    model = build_train_model(name=VIT)
+    model = seeded_train_model(name=VIT)
     host_sd = {k: v.clone() for k, v in model.state_dict().items()}
     size = model.cfg.image_size
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -5742,35 +5974,42 @@ def run_launcher(card, work, entry, corpus, name="sam2.1_hiera_t512", device="cu
     os.remove(ckpt)
 
 
-def run_surfaces(card, work, entry, corpus, name="sam2.1_hiera_t512", device="cuda") -> dict:
+def run_surfaces(card, work, entry, corpus, name="sam2.1_hiera_t512", device="cuda", parts="abcdef") -> dict:
     """Phase 14 (a)-(f) for the preset ``name`` at full width in bf16 on
-    ``device`` with phase 9's weights (``entry``) and phase 10's corpus.
-    Returns (b)'s and (c)'s numbers."""
+    ``device`` with phase 9's weights (``entry``: (a) reads phase 9's apps
+    too) and phase 10's corpus ((f)); ``parts``: the letters to run, in
+    order. Returns (b)'s and (c)'s numbers."""
     from us_video_medsam2_tpu_torch.inference.video_predictor import build_sam2_video_predictor
 
     os.makedirs(work, exist_ok=True)
-    t0 = time.perf_counter()
-    log("  (a) tools/torch_verify_real_ckpt.py on phase 9's infer_video cases")
-    run_verifier(card, os.path.join(work, "verifier"), entry, name, device)
-    t1 = time.perf_counter()
-    log(f"  (a) took {t1 - t0:.1f} s")
-    pred = build_sam2_video_predictor(name, state_dict=entry["host_sd"], fill_hole_area=8, device=device)
-    out = {"offload": run_offload_study(card, pred, OFFLOAD_FRAMES, OFFLOAD_HW, STREAM_CHUNK)}
-    t2 = time.perf_counter()
-    log(f"  (b) took {t2 - t1:.1f} s")
-    out["mp4"] = run_http_session(card, pred, work, tag="(c)", upload="upload.mp4", writer=write_mp4)
-    del pred
-    t3 = time.perf_counter()
-    log(f"  (c) took {t3 - t2:.1f} s")
-    run_quickstart(card, name, device, QUICKSTART_FRAMES)
-    t4 = time.perf_counter()
-    log(f"  (d) took {t4 - t3:.1f} s")
-    check_fast_fill(card, device, FAST_FILL_SHAPE, FAST_FILL_AREAS)
-    t5 = time.perf_counter()
-    log(f"  (e) took {t5 - t4:.1f} s")
-    run_launcher(card, os.path.join(work, "launcher"), entry, corpus, name, device)
-    log(f"  (f) took {time.perf_counter() - t5:.1f} s")
-    log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+    out = {}
+    t_phase = time.perf_counter()
+
+    def verifier():
+        log("  (a) tools/torch_verify_real_ckpt.py on phase 9's infer_video cases")
+        run_verifier(card, os.path.join(work, "verifier"), entry, name, device)
+
+    preds = []  # (b) and (c)'s one predictor
+
+    def offload_and_mp4(letter):
+        if not preds:
+            preds.append(build_sam2_video_predictor(name, state_dict=entry["host_sd"], fill_hole_area=8,
+                                                    device=device))
+        if letter == "b":
+            out["offload"] = run_offload_study(card, preds[0], OFFLOAD_FRAMES, OFFLOAD_HW, STREAM_CHUNK)
+        else:
+            out["mp4"] = run_http_session(card, preds[0], work, tag="(c)", upload="upload.mp4", writer=write_mp4)
+            preds.clear()
+
+    steps = {"a": verifier, "b": lambda: offload_and_mp4("b"), "c": lambda: offload_and_mp4("c"),
+             "d": lambda: run_quickstart(card, name, device, QUICKSTART_FRAMES),
+             "e": lambda: check_fast_fill(card, device, FAST_FILL_SHAPE, FAST_FILL_AREAS),
+             "f": lambda: run_launcher(card, os.path.join(work, "launcher"), entry, corpus, name, device)}
+    for letter in parts:
+        t0 = time.perf_counter()
+        steps[letter]()
+        log(f"  ({letter}) took {time.perf_counter() - t0:.1f} s")
+    log(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -5838,6 +6077,13 @@ def main(argv=None) -> int:
     check_window_attention_v1(g, rows)
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
+    # the host CPU's reference runs of phases 7, 8 and 11 (the fixed-plan steps, the editing sequence), in a
+    # child process beside phases 4-11
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    HOST_RUNNER[0] = HostRuns(os.path.join(work, "host_runs"))
+    log(f"  host runs {[(k, n, f[0] if f else None) for k, n, f, _ in HOST_RUNS]} started in a child process on "
+        f"{HOST_THREADS} threads")
+
     # 4-5. the main path: sam2.1_hiera_t512, switches off, then on
     log("[4/15] main path: sam2.1_hiera_t512, bf16, seeded weights and video")
     t0 = time.perf_counter()
@@ -5867,7 +6113,6 @@ def main(argv=None) -> int:
         f"T {TRAIN_T}, B 1, O {TRAIN_OBJECTS}, seeded weights and batch; without temporal fusion, then with "
         f"{GFTE_FUSION[0]}")
     t0 = time.perf_counter()
-    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
     train_launches, t512_fixed = run_training(args.profile, work,
                                               os.path.join(work, "measurement", "trace_t512_fixed"))
     log(f"  launches over the {TRAIN_STEPS} timed steps without fusion: {train_launches}")

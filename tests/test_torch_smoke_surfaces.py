@@ -7,11 +7,11 @@ its JSON summary that CSV's ALL rows, exit 1 under ``--expect_dice
 float16 on the host), three objects streamed forward and in reverse, against
 the resident session of the same frames; (c) an mp4 through the HTTP
 server against the predictor driven directly on the decoded frames; (d)
-the quickstart; (e) the fast hole filler, device against host; (f) the
-training launcher under a real torchrun (one process, ``--device cpu``)
-with the step hook in the trainer's process, and its checkpoint served.
-The card's own gates (launch counts, peaks, captures) are the card's and
-are not run here."""
+the quickstart; (e) the fast hole filler, device against host; each a
+case of its own ((f), the training launcher, in
+tests/test_torch_smoke_launcher.py, so that the two files run side by
+side). The card's own gates (launch counts, peaks, captures) are the
+card's and are not run here."""
 
 import json
 
@@ -45,24 +45,28 @@ def seeded_weights():
     return model, {k: v.clone() for k, v in model.state_dict().items()}
 
 
-def test_phase_14_on_cpu(tmp_path, small):
+@pytest.mark.parametrize("part", list("abcde"))
+def test_phase_14_on_cpu(part, tmp_path, small):
+    """One part of phase 14 a case ((f), the launcher, is
+    tests/test_torch_smoke_launcher.py's); (a) after phase 9's apps, whose
+    infer_video cases it verifies."""
     model, host_sd = seeded_weights()
-    apps = chip_smoke.check_apps("tiny64_test", host_sd, model.cfg, "cpu", str(tmp_path / "entry"), "cpu")
-    assert set(apps) == {"launches", "videos", "first", "metrics_csv"} and apps["first"] == [0, 0]
-    corpus = str(tmp_path / "corpus")
-    chip_smoke.write_train_corpus(corpus, (60, 80), 6)
-    out = chip_smoke.run_surfaces("cpu", str(tmp_path / "surfaces"), {"host_sd": host_sd, "apps": apps}, corpus,
-                                  name="tiny64_test", device="cpu")
-    # (b): the float16 store of 10 frames at the model's 64²
-    assert out["offload"]["host_store_bytes"] == 10 * 64 * 64 * 3 * 2
-    assert set(out["mp4"]) == {"upload_ms", "click_ms", "track_ms_per_frame"}
+    entry = {"host_sd": host_sd}
+    if part == "a":
+        apps = chip_smoke.check_apps("tiny64_test", host_sd, model.cfg, "cpu", str(tmp_path / "entry"), "cpu")
+        assert set(apps) == {"launches", "videos", "first", "metrics_csv"} and apps["first"] == [0, 0]
+        entry["apps"] = apps
+    out = chip_smoke.run_surfaces("cpu", str(tmp_path / "surfaces"), entry, None, name="tiny64_test",
+                                  device="cpu", parts=part)
     surfaces = tmp_path / "surfaces"
-    assert (surfaces / "upload.mp4").stat().st_size > 0
-    assert (surfaces / "verifier" / "verify" / "evaluation_summary.csv").read_bytes() == open(
-        apps["metrics_csv"], "rb").read()
-    steps = json.loads((surfaces / "launcher" / "steps.json").read_text())
-    assert steps and all(set(s["launches"].values()) == {0} for s in steps)  # the host's plain versions
-    assert (surfaces / "launcher" / "run" / "checkpoint.npz").exists()
+    if part == "a":
+        assert (surfaces / "verifier" / "verify" / "evaluation_summary.csv").read_bytes() == open(
+            apps["metrics_csv"], "rb").read()
+    if part == "b":  # the float16 store of 10 frames at the model's 64²
+        assert out["offload"]["host_store_bytes"] == 10 * 64 * 64 * 3 * 2
+    if part == "c":
+        assert set(out["mp4"]) == {"upload_ms", "click_ms", "track_ms_per_frame"}
+        assert (surfaces / "upload.mp4").stat().st_size > 0
     assert not list(surfaces.rglob("*.pt"))  # each checkpoint removed after its use
     assert not torch.distributed.is_initialized()
 

@@ -37,10 +37,16 @@ passes give the same bits on every run. ``flash_dropout_fwd_split_plain``
 and ``flash_dropout_bwd_split_plain`` are the plain models of the splits,
 for the tests.
 
-The JAX package's remat form (``FLASH_RESID``, ``_flash_apply``) exists
-because ``jax.checkpoint`` re-runs a custom_vjp's forward to rebuild its
-residuals. Here ``save_for_backward`` keeps (out, lse) from the one forward,
-so nothing replaces it.
+The forward is the operator ``usm_torch::flash_dropout_fwd``
+(``torch.library.custom_op``, ``FLASH_RESID``), the counterpart of the JAX
+package's remat form (``FLASH_RESID``, ``flash_attention_train_remat``):
+the training step's rematerialisation (``training/train_model.py``) is a
+selective checkpoint whose policy sees dispatcher operators, and it saves
+this operator's (out, lse), so that the recompute in the backward pass
+takes them and the forward kernel runs once a step. Its backward is the
+backward kernel on the card; on the CPU the operator runs the plain forward
+and its backward is autograd of the plain version, recomputed (the
+gradient the plain version has always had here).
 """
 
 from __future__ import annotations
@@ -400,28 +406,53 @@ _lib.counted(flash_dropout_fwd)
 _lib.counted(flash_dropout_bwd)
 
 
-class _FlashTrain(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, key_mask, seed, rate):
-        seed = seed_operand(seed, q.device)
-        out, lse = flash_dropout_fwd(q, k, v, key_mask, seed, rate)
-        ctx.save_for_backward(q, k, v, key_mask, out, lse, seed)
-        ctx.rate = rate
-        return out
+@torch.library.custom_op("usm_torch::flash_dropout_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor | None,
+                  seed: torch.Tensor, rate: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): the plain version for CPU tensors, else the forward kernels."""
+    if q.is_cpu:
+        return flash_attention_train_plain(q, k, v, key_mask, seed, rate)
+    return flash_dropout_fwd(q, k, v, key_mask, seed, rate)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, key_mask, out, lse, seed = ctx.saved_tensors
+
+# the operator whose outputs the training step's remat policy saves (JAX FLASH_RESID)
+FLASH_RESID = torch.ops.usm_torch.flash_dropout_fwd.default
+
+
+def _fwd_op_setup(ctx, inputs, output):
+    q, k, v, key_mask, seed, rate = inputs
+    ctx.save_for_backward(q, k, v, key_mask, seed, *output)
+    ctx.rate = rate
+    ctx.mark_non_differentiable(output[1])
+
+
+def _fwd_op_backward(ctx, g, _g_lse):
+    q, k, v, key_mask, seed, out, lse = ctx.saved_tensors
+    if q.is_cpu:  # autograd of the plain version, recomputed
+        need = ctx.needs_input_grad[:3]
+        args = [x.detach().requires_grad_(n) for x, n in zip((q, k, v), need)]
+        with torch.enable_grad():
+            res = flash_attention_train_plain(*args, key_mask, seed, ctx.rate)[0]
+        grads = iter(torch.autograd.grad(res, [a for a, n in zip(args, need) if n], g))
+        dq, dk, dv = (next(grads) if n else None for n in need)
+    else:
         dq, dk, dv = flash_dropout_bwd(q, k, v, key_mask, seed, ctx.rate, out, lse, g)
-        return dq, dk, dv, None, None, None
+    return dq, dk, dv, None, None, None
+
+
+_flash_fwd_op.register_autograd(_fwd_op_backward, setup_context=_fwd_op_setup)
 
 
 def flash_attention_train(q, k, v, key_mask, seed, rate: float):
     """Attention with dropout ``rate`` after the softmax, keep mask from
-    ``seed`` (an int32: a 0-d tensor on q's device, or an int). CPU tensors
-    take the plain version (autograd through it); a CUDA tensor launches the
-    forward kernel, and the backward kernels in the backward pass (the seed
-    tensor saved for them), or raises."""
+    ``seed`` (an int32: a 0-d tensor on q's device, or an int), through the
+    operator ``FLASH_RESID``. CPU tensors take the plain version (its
+    gradient autograd's); a CUDA tensor launches the forward kernel, and the
+    backward kernels in the backward pass (the seed tensor saved for them),
+    or raises."""
     if q.is_cpu:
-        return flash_attention_train_plain(q, k, v, key_mask, seed, rate)[0]
-    return _FlashTrain.apply(q.contiguous(), k.contiguous(), v.contiguous(), key_mask, seed, float(rate))
+        seed = seed if isinstance(seed, torch.Tensor) else torch.tensor(seed, dtype=torch.int64)
+        return _flash_fwd_op(q, k, v, key_mask, seed, float(rate))[0]
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check(q, k, v, key_mask, "flash_dropout_fwd")  # before the dispatch: a tensor of another device raises here
+    return _flash_fwd_op(q, k, v, key_mask, seed_operand(seed, q.device), float(rate))[0]

@@ -11,7 +11,8 @@ JAX default), or the whole-block kernel (``kernels/cxblock.py``) when
 ``US_MEDSAM2_ENABLE_FUSED_CXBLOCK`` is set, as the JAX package opts in to its
 TPU kernel (``core/switches.py``). With ``deterministic`` False
 (training) the layers apply attention dropout and their four residual
-dropouts (``dropout``, ``dropout1``-``dropout3``, torch's own RNG).
+dropouts (``dropout``, ``dropout1``-``dropout3``, ``torch.native_dropout`` on the
+device's default generator).
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ import math
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from us_video_medsam2_tpu_torch.core.config import MemoryAttentionConfig, MemoryEncoderConfig
 from us_video_medsam2_tpu_torch.core.switches import fused_cxblock_enabled
@@ -50,7 +50,11 @@ class MemoryAttentionLayer(nn.Module):
         cfg = self.cfg
 
         def drop(x):  # residual dropouts, and the one inside the FFN
-            return F.dropout(x, cfg.dropout, training=not deterministic)
+            # the draw out of place (F.dropout's on the CPU is in place), so a
+            # selective checkpoint can save it (``training/train_model.py``)
+            if deterministic or cfg.dropout == 0.0:
+                return x
+            return torch.native_dropout(x, cfg.dropout, True)[0]
 
         tgt2 = self.norm1(tgt)
         q = tgt2 + query_pos if cfg.pos_enc_at_attn else tgt2

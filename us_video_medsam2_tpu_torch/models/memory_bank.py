@@ -5,7 +5,10 @@ per-object, per-frame memories in static-shape tensors indexed by absolute
 frame, and per-frame selection is an index computation + gather + validity
 mask. Key layout fed to memory attention, always in this order:
 [cond-frame slots (K) | non-cond slots (num_maskmem - 1) | object pointers].
-``write_memory`` updates the bank in place (the JAX version returns a copy).
+``write_memory`` updates the bank in place; ``with_memory`` returns a new
+bank, as the JAX ``write_memory`` does (the training forward's bank, carried
+from frame to frame as JAX's scan carries it, so that a frame's body
+recomputed in the backward pass reads the bank it was given).
 
 The frame index is an int or a 0-d ``torch.long`` tensor on the bank's device
 (JAX traces it): with a tensor, selection and write are device ops only, so
@@ -75,6 +78,20 @@ def write_memory(bank: MemoryBank, frame_idx: int | torch.Tensor, maskmem: torch
     bank.valid[:, frame_idx] = True
     bank.is_cond[:, frame_idx] = bool(is_cond)
     return bank
+
+
+def with_memory(bank: MemoryBank, frame_idx: torch.Tensor, maskmem: torch.Tensor, obj_ptr: torch.Tensor,
+                is_cond: torch.Tensor) -> MemoryBank:
+    """A new bank: ``bank`` with frame_idx's memory ([B, Hm*Wm, mem_dim],
+    [B, C]) and its 0-d bool ``is_cond`` written (``write_memory`` with a
+    tensor index, out of place); ``bank`` is left as it was."""
+    t = frame_idx.reshape(1)
+    return MemoryBank(
+        maskmem=bank.maskmem.index_copy(1, t, maskmem.to(bank.maskmem.dtype)[:, None]),
+        obj_ptr=bank.obj_ptr.index_copy(1, t, obj_ptr.to(bank.obj_ptr.dtype)[:, None]),
+        valid=bank.valid.index_fill(1, t, True),
+        is_cond=bank.is_cond.index_copy(1, t, is_cond.to(torch.bool).reshape(1, 1).expand(bank.is_cond.shape[0], 1)),
+    )
 
 
 @dataclass

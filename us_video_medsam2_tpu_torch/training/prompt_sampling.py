@@ -75,17 +75,20 @@ def _argmax2d(x: torch.Tensor):
 
 
 def sample_random_points_from_errors(gt_masks: torch.Tensor, pred_masks: torch.Tensor | None,
-                                     gen: torch.Generator, shard=None):
+                                     gen: torch.Generator | None, shard=None, noise: torch.Tensor | None = None):
     """[B, 1, H, W] bool -> (points [B, 1, 2] f32, labels [B, 1] int32): a
     uniform click among the false positives (label 0) and false negatives
-    (label 1); an all-correct prediction draws from the background."""
+    (label 1); an all-correct prediction draws from the background.
+    ``noise``: the uniforms, drawn ahead by ``point_noise`` (then ``gen``
+    draws nothing)."""
     if pred_masks is None:
         pred_masks = torch.zeros_like(gt_masks)
     b, _, h, w = gt_masks.shape
     fp = ~gt_masks & pred_masks
     fn = gt_masks & ~pred_masks
     all_correct = (gt_masks == pred_masks).all(dim=3, keepdim=True).all(dim=2, keepdim=True)
-    noise = rand_rows((2, b, 1, h, w), gen, gt_masks.device, shard, axis=1)
+    if noise is None:
+        noise = point_noise(gt_masks, "uniform", gen, shard)
     max0, pix0 = _argmax2d(noise[0] * (fp | (all_correct & ~gt_masks)))
     max1, pix1 = _argmax2d(noise[1] * fn)
     take1 = (max1 > max0) | ((max1 == max0) & (pix1 < pix0))
@@ -133,9 +136,21 @@ def sample_one_point_from_error_center(gt_masks: torch.Tensor, pred_masks: torch
     return pts, is_positive.int()[:, None]
 
 
-def get_next_point(gt_masks, pred_masks, method: str, gen: torch.Generator | None, shard=None):
+def point_noise(gt_masks: torch.Tensor, method: str, gen: torch.Generator | None, shard=None):
+    """The uniforms [2, B, 1, H, W] that ``get_next_point(method)`` draws for
+    the objects of ``gt_masks`` [B, 1, H, W], drawn ahead (the training step
+    draws a click's before its body, as JAX passes a key in); None for
+    "center", which draws nothing."""
+    if method != "uniform":
+        return None
+    b, _, h, w = gt_masks.shape
+    return rand_rows((2, b, 1, h, w), gen, gt_masks.device, shard, axis=1)
+
+
+def get_next_point(gt_masks, pred_masks, method: str, gen: torch.Generator | None, shard=None, noise=None):
+    """A click (``noise``: see ``sample_random_points_from_errors``)."""
     if method == "uniform":
-        return sample_random_points_from_errors(gt_masks, pred_masks, gen, shard)
+        return sample_random_points_from_errors(gt_masks, pred_masks, gen, shard, noise)
     if method == "center":
         return sample_one_point_from_error_center(gt_masks, pred_masks, gen)
     raise ValueError(f"unknown sampling method {method}")

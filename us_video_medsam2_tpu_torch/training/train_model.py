@@ -31,18 +31,40 @@ Kept from the JAX package:
 - every frame emits one output per correction step; steps that did not run
   repeat the previous output with ``corr_valid`` False and add zero loss.
 
-No activation checkpointing: every forward kernel runs once per step.
+Rematerialisation, as the JAX step's ``jax.checkpoint`` with
+``_remat_policy``: with gradients on, each frame's body (the branches and
+their selections, the clicks, the memory encoding and the bank write) runs
+under ``torch.utils.checkpoint`` with ``remat_policy``, and each click's
+body (a click, one SAM-heads call, the selection) under a checkpoint of its
+own inside it. The backward pass recomputes the bodies' activations instead
+of keeping them; the frame's checkpoint saves only the dropout-flash
+forward's (out, lse) (``FLASH_RESID``), so that kernel runs once a step, and
+the values of the draws. Everything the recompute reads is as the forward
+left it, so the loss, the gradients and the update keep their bits:
+- the bank is the frames' carry, a new ``MemoryBank`` a frame
+  (``with_memory``, out of place), as JAX's scan carries it;
+- a frame body's draws (the step's generator: prompt noise, dropout-flash
+  seeds; the device's default one: the memory attention's residual
+  dropouts) are saved by the policy and taken again by the recompute,
+  which draws nothing; a click's uniforms are drawn before its body and
+  passed in (JAX passes its keys), so the click body draws nothing.
+The image encoder and the temporal fusion stay outside the bodies, as in
+JAX.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
-from us_video_medsam2_tpu_torch.models.memory_bank import init_memory_bank, write_memory
+from us_video_medsam2_tpu_torch.kernels.flash_dropout import FLASH_RESID
+from us_video_medsam2_tpu_torch.models.memory_bank import init_memory_bank, with_memory
 from us_video_medsam2_tpu_torch.models.sam2 import SAM2Model
-from us_video_medsam2_tpu_torch.training.prompt_sampling import get_next_point, sample_box_points
+from us_video_medsam2_tpu_torch.training.prompt_sampling import get_next_point, point_noise, sample_box_points
 
 
 @dataclass(frozen=True)
@@ -184,16 +206,50 @@ def _select(cond: torch.Tensor, a: dict, b: dict) -> dict:
     return {k: torch.where(cond, a[k], b[k]) for k in a}
 
 
+def remat_policy(ctx, op, *args, **kwargs):
+    """The frame body's selective checkpoint (JAX ``_remat_policy``,
+    ``save_only_these_names(FLASH_RESID)``): the dropout-flash forward's
+    outputs and every draw are saved, everything else is recomputed. A draw
+    in place cannot be saved (the recompute would get its value but not
+    write it), so one raises."""
+    if op is FLASH_RESID:
+        return CheckpointPolicy.MUST_SAVE
+    if torch.Tag.nondeterministic_seeded in op.tags:
+        if op._schema.is_mutable:
+            raise RuntimeError(f"remat: the draw {op} writes in place; its value cannot be saved for the recompute")
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_remat_contexts = functools.partial(create_selective_checkpoint_contexts, remat_policy)
+
+
+def _checkpointed(fn, *args, context_fn=None):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    (non-reentrant; the generators are left alone: a body's draws are saved
+    or passed in). The tensors inside ``args``' lists and dicts are the
+    checkpoint's own inputs, so an enclosing checkpoint recomputes them
+    instead of the inner one holding them."""
+    leaves, spec = tree_flatten(args)
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(lambda *xs: fn(*tree_unflatten(list(xs), spec)), *leaves, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 def train_forward(model: SAM2Model, gen: torch.Generator, images: torch.Tensor, masks: torch.Tensor,
-                  sim: TrainSimConfig, is_training: bool = True, shard=None, plan: Plan | None = None):
+                  sim: TrainSimConfig, is_training: bool = True, shard=None, plan: Plan | None = None,
+                  remat: bool = True):
     """images [T, B, H, W, 3] normalized, masks [T, B, O, H, W] bool, on the
     model's device; ``gen`` a generator on that device that draws the plan,
     the prompt noise, the temporal fusion's draws and the attention-dropout
     seeds. ``plan``: a given plan (JAX's, in the tests) instead of a drawn
     one. ``shard`` (offset, total): where these B·O objects lie among the
-    global batch's under data parallelism (``prompt_sampling``). Returns
-    (stacked outputs by processing position, final logits by frame
-    [T, Bo, H, W], the plan). Nothing is read back to the host."""
+    global batch's under data parallelism (``prompt_sampling``). ``remat``
+    False keeps every activation (the step without rematerialisation, which
+    the step with it is held against; with gradients off there is nothing
+    to recompute). Returns (stacked outputs by processing position, final
+    logits by frame [T, Bo, H, W], the plan). Nothing is read back to the
+    host."""
     cfg = model.cfg
     t, b, h, w, _ = images.shape
     o = masks.shape[2]
@@ -207,6 +263,7 @@ def train_forward(model: SAM2Model, gen: torch.Generator, images: torch.Tensor, 
     clicks = n_corr_pts if plan_limits(sim, t, is_training)[0] > 0.0 else 0  # no point input: no correction
     if plan is None:
         plan = sample_plan(gen, sim, t, is_training, dev)
+    remat = remat and torch.is_grad_enabled()
 
     fpn = model.forward_image(images.reshape(t * b, h, w, 3), deterministic=not is_training, num_frames=t,
                               gen=gen)["backbone_fpn"]
@@ -245,14 +302,37 @@ def train_forward(model: SAM2Model, gen: torch.Generator, images: torch.Tensor, 
             step0 = _select(plan.mode == m, outs[m], step0)
         return step0
 
-    def track_branch(ti, top, hr):
+    def track_branch(ti, top, hr, bank):
         pix = model.condition_on_memory(ti, top, bank, t, is_training=is_training,
                                         deterministic=not is_training, gen=gen)
         return _pack(heads(pix, coords0, labels0, None, hr, True), pix, coords0, labels0)
 
-    steps, final_high = [], []
-    for i in range(t):
-        ti = plan.order[i]  # a 0-d device index
+    def click_draws(gt):
+        """A click's draws, made before its body: whether it samples from
+        the ground truth alone, and its uniforms."""
+        from_gt = None
+        if is_training and sim.prob_to_sample_from_gt > 0:
+            from_gt = torch.rand((), generator=gen, device=dev) < sim.prob_to_sample_from_gt
+        return point_noise(gt, pt_method, gen, shard), from_gt
+
+    def click(gt, hr, should_correct, carry, j, noise, from_gt):
+        """Correction click j (reference _iter_correct_pt_sampling:448-541,
+        JAX ``corr_body``): it runs, and its result is kept where the frame
+        is corrected."""
+        pred = carry["high"] > 0
+        if from_gt is not None:
+            pred = pred & ~from_gt
+        pts, lbls = get_next_point(gt, pred, pt_method, None, shard, noise=noise)
+        c, lb = carry["coords"].clone(), carry["labels"].clone()
+        c[:, 2 + j], lb[:, 2 + j] = pts[:, 0], lbls[:, 0]
+        mask_in = carry["low"][:, 0, :, :, None]  # previous logits as the mask prompt
+        clicked = _pack(heads(carry["pix"], c, lb, mask_in, hr, False), carry["pix"], c, lb)
+        return _select(should_correct, clicked, carry)
+
+    def frame(ti, i, bank):
+        """Position i, frame ``ti`` (a 0-d device index), from the bank the
+        earlier positions left (JAX ``frame_body``): (the new bank, the
+        position's outputs, its final logits)."""
         at = ti.reshape(1)
         top = top_all.index_select(0, at)[0]
         hr = [x.index_select(0, at)[0] for x in hr_all] if hr_all is not None else None
@@ -260,35 +340,25 @@ def train_forward(model: SAM2Model, gen: torch.Generator, images: torch.Tensor, 
         should_correct = plan.should_correct.index_select(0, at)[0]
         # position 0 is always an initial frame, positions from n_init_max on always tracked
         init = init_branch(top, hr, gt) if i < n_init_max else None
-        track = track_branch(ti, top, hr) if i > 0 else None
+        track = track_branch(ti, top, hr, bank) if i > 0 else None
         if init is None or track is None:
             step0 = init if track is None else track
         else:
             step0 = _select(plan.n_init > i, init, track)
 
-        # correction clicks (reference _iter_correct_pt_sampling:448-541): each
-        # runs, and its result is kept where the frame is corrected
         carry, corr = step0, []
         for j in range(n_corr_pts):
             if j < clicks:
-                pred = carry["high"] > 0
-                if is_training and sim.prob_to_sample_from_gt > 0:
-                    pred = pred & ~(torch.rand((), generator=gen, device=dev) < sim.prob_to_sample_from_gt)
-                pts, lbls = get_next_point(gt, pred, pt_method, gen, shard)
-                c, lb = carry["coords"].clone(), carry["labels"].clone()
-                c[:, 2 + j], lb[:, 2 + j] = pts[:, 0], lbls[:, 0]
-                mask_in = carry["low"][:, 0, :, :, None]  # previous logits as the mask prompt
-                clicked = _pack(heads(carry["pix"], c, lb, mask_in, hr, False), carry["pix"], c, lb)
-                carry = _select(should_correct, clicked, carry)
+                args = (gt, hr, should_correct, carry, j, *click_draws(gt))
+                carry = _checkpointed(click, *args) if remat else click(*args)
             corr.append(carry)
 
         maskmem = model.encode_memory(top, carry["high"], carry["score"], plan.use_pt, is_training)
         is_cond = plan.is_init.index_select(0, at)[0]
         if sim.add_all_frames_to_correct_as_cond:
             is_cond = is_cond | should_correct
-        write_memory(bank, ti, maskmem.reshape(bo, -1, maskmem.shape[-1]), carry["obj_ptr"], is_cond)
-        final_high.append(carry["high"][:, 0])
-        steps.append({
+        bank = with_memory(bank, ti, maskmem.reshape(bo, -1, maskmem.shape[-1]), carry["obj_ptr"], is_cond)
+        return bank, {
             "step0_multimasks": step0["multimasks"], "step0_ious": step0["ious"],
             "step0_score": step0["score"],
             "corr_multimasks": _stack([s["multimasks"][:, :1] for s in corr], step0["multimasks"][:, :1]),
@@ -296,7 +366,17 @@ def train_forward(model: SAM2Model, gen: torch.Generator, images: torch.Tensor, 
             "corr_score": _stack([s["score"] for s in corr], step0["score"]),
             "corr_valid": should_correct.reshape(1).expand(n_corr_pts),
             "target": gt[:, 0],
-        })
+        }, carry["high"][:, 0]
+
+    steps, final_high = [], []
+    for i in range(t):
+        ti = plan.order[i]  # a 0-d device index
+        if remat:
+            bank, step, high = _checkpointed(frame, ti, i, bank, context_fn=_remat_contexts)
+        else:
+            bank, step, high = frame(ti, i, bank)
+        steps.append(step)
+        final_high.append(high)
     stacked = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
     # finals scattered back to frame order for the temporal loss
     finals = torch.stack(final_high).index_select(0, torch.argsort(plan.order))

@@ -8,8 +8,11 @@ capture their body once for each model, batch shape and dtype, compute
 dtype, kernel switch set and process group, and then replay that capture
 every step. The body is one program whatever the plan
 (``train_model.train_forward`` draws the plan on the device and selects
-between branches), and reads nothing back to the host. On the CPU the same
-body runs eagerly, in the dtype the caller names.
+between branches), and reads nothing back to the host. Its backward pass
+recomputes the frame and click bodies (``train_forward``'s
+rematerialisation): the recompute and its backward are recorded in the
+same capture and replayed with the rest, and a failed recompute raises. On
+the CPU the same body runs eagerly, in the dtype the caller names.
 
 A capture is made from an eager run of the body on a side stream (the first
 step's own, whose outputs it returns: capture runs nothing) and needs every
@@ -96,14 +99,15 @@ def create_train_state(model: SAM2Model, cfg: TrainConfig, device: str | torch.d
 
 
 def _losses(model: SAM2Model, cfg: TrainConfig, batch: TrainBatch, gen: torch.Generator,
-            is_training: bool):
+            is_training: bool, remat: bool = True):
     obj_valid = batch.obj_valid.reshape(-1)
     shard = num_objects = None
     if distributed.is_initialized():
         n = obj_valid.numel()
         shard = (distributed.rank() * n, distributed.world() * n)
         num_objects = torch.clamp(distributed.all_reduce_sum(obj_valid.float().sum()), min=1.0)
-    stacked, finals, plan = train_forward(model, gen, batch.images, batch.masks, cfg.sim, is_training, shard)
+    stacked, finals, plan = train_forward(model, gen, batch.images, batch.masks, cfg.sim, is_training, shard,
+                                          remat=remat)
     losses = multi_step_loss_stacked(cfg.loss, stacked, obj_valid, final_logits_by_frame=finals,
                                      num_objects=num_objects)
     return losses, plan
@@ -205,7 +209,9 @@ class TrainStep:
     on the card they are the graph's memory, valid until the model's next
     train or eval step.
     ``eager`` runs the body once eagerly (on the card too: the body a
-    capture records, for holding a graph against it)."""
+    capture records, for holding a graph against it); ``remat=False`` runs
+    it without rematerialisation, for holding the step against the step
+    without it (``train_model.train_forward``)."""
 
     def __init__(self, cfg: TrainConfig):
         self.cfg = cfg
@@ -215,13 +221,13 @@ class TrainStep:
     def captures(self) -> int:
         return self.captured.captures
 
-    def body(self, state: TrainState, batch: TrainBatch, gen: torch.Generator) -> dict:
+    def body(self, state: TrainState, batch: TrainBatch, gen: torch.Generator, remat: bool = True) -> dict:
         cfg = self.cfg
         model = state.model
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        losses, plan = _losses(model, cfg, batch, gen, is_training=True)
+        losses, plan = _losses(model, cfg, batch, gen, is_training=True, remat=remat)
         # every plan's loss has a graph: positions 1..n_init_max-1 run the
         # tracked branch under a selection, so a plan whose frames are all
         # mask-prompted initial frames gets exact zero gradients, as JAX's
@@ -238,10 +244,10 @@ class TrainStep:
         metrics["plan"] = plan
         return metrics
 
-    def eager(self, state: TrainState, batch: TrainBatch, seed: int) -> dict:
+    def eager(self, state: TrainState, batch: TrainBatch, seed: int, remat: bool = True) -> dict:
         gen = self.captured.generator(batch.images.device)
         seed_step(gen, seed)
-        metrics = self.body(state, batch, gen)
+        metrics = self.body(state, batch, gen, remat)
         state.step += 1
         return metrics
 
