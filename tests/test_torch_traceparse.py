@@ -14,7 +14,8 @@ reads xprof traces, which the port does not write).
   no device event (``IncompleteTrace``: its sums would under-count);
 - ``profiling.trace`` on the CPU writes a trace that ``parse_trace`` finds
   (and then refuses: no device track), with a range per module call;
-- ``step_timer``, ``device_memory_summary`` and ``peak_bf16_flops``.
+- ``peak_bf16_flops``. The spans of ``utils/profiling.py`` are held in
+  ``tests/test_torch_spans.py``.
 """
 
 from __future__ import annotations
@@ -172,21 +173,6 @@ def test_profiling_trace_on_the_cpu_is_found_by_the_parser(tmp_path):
     assert len(traceparse.load_events(str(tmp_path))) > 0
 
 
-def test_step_timer():
-    with profiling.step_timer("fwd", sync={"out": [torch.ones(2)], "n": 3}) as box:
-        time.sleep(0.01)
-    assert box["name"] == "fwd" and 0.01 <= box["seconds"] < 5.0
-    with profiling.step_timer() as box:
-        pass
-    assert box["name"] == "step" and box["seconds"] >= 0.0
-
-
-def test_device_memory_summary_is_empty_on_the_cpu():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    assert profiling.device_memory_summary() == {}
-
-
 def test_peak_bf16_flops():
     assert traceparse.peak_bf16_flops("NVIDIA H100 80GB HBM3") == 989e12
     assert traceparse.peak_bf16_flops("NVIDIA H100 PCIe") == 756e12
@@ -216,6 +202,32 @@ def test_profile_tool_analyzes_a_trace(tmp_path, capsys):
     with open(tmp_path / "summary.json") as f:
         assert json.load(f) == summary
     assert dict(traceparse.parse_trace(str(tmp_path))[0])  # summary.json beside the trace is not read as one
+
+
+def test_profile_tool_prints_the_span_totals_beside_the_tallies(tmp_path, capsys):
+    """With the run's ``spans.jsonl`` (``profiling.span_totals`` of the traced
+    run) beside the trace, the tool prints each span's device ms beside the
+    tallies and keeps them in ``summary.json``; the trace is still the one parsed."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
+                        "torch_profile_propagation.py")
+    spec = importlib.util.spec_from_file_location("torch_profile_propagation", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    _write(tmp_path, _trace_events())
+    spans = {"predictor.replays": {"count": 1, "rows": 3, "host_ms": 0.5, "device_ms": 0.02,
+                                   "parents": {"None": 1}},
+             "sam2.encoder": {"count": 3, "rows": 3, "host_ms": 0.0, "device_ms": 0.012,
+                              "parents": {"predictor.replays": 3}}}
+    with open(tmp_path / "spans.jsonl", "w") as f:
+        for name, t in spans.items():
+            f.write(json.dumps({"name": name, **t}) + "\n")
+    summary = tool.main(["--analyze-only", "--out", str(tmp_path), "--frames", "4", "--top", "3"])
+    printed = capsys.readouterr().out
+    assert "-- by program span" in printed and "sam2.encoder" in printed
+    assert printed.index("predictor.replays") < printed.index("sam2.encoder")  # most device time first
+    assert summary["spans"] == spans and summary["total_ms"] == pytest.approx(29.25e-3)
 
 
 MEASUREMENT_FILES = ["us_video_medsam2_tpu_torch/utils/profiling.py", "us_video_medsam2_tpu_torch/utils/traceparse.py",

@@ -11,7 +11,12 @@ seeded noise with one click at the centre of frame 0. Two runs first (the
 first captures the frame body's CUDA graph), then one traced run of the
 propagation (init_state and the click outside the trace). Each tracked frame
 is one graph replay, so its kernels are attributed to "graph replay"; the
-prompted frame's encode and memory write run eagerly, module by module.
+prompted frame's encode and memory write run eagerly, module by module. The
+program's spans (``utils/profiling.span_totals``) of the same traced run,
+timed on the card inside every replay, go to ``spans.jsonl`` beside the
+trace (a line a span; not ``*.json``, which the parser would take for a
+trace) and are printed beside the tallies: device ms by stage, with counts,
+rows and parents.
 The trace goes to ``--out``, by default ``build/prop_trace`` in this
 checkout (ignored by git), so two checkouts never read each other's trace.
 A trace in which a launch has no device event is refused
@@ -38,7 +43,7 @@ def capture(out_dir: str, num_frames: int, cfg_name: str = "sam2.1_hiera_t512") 
     import torch
 
     from us_video_medsam2_tpu_torch.inference.video_predictor import build_sam2_video_predictor
-    from us_video_medsam2_tpu_torch.utils.profiling import trace
+    from us_video_medsam2_tpu_torch.utils import profiling
 
     predictor = build_sam2_video_predictor(cfg_name, fill_hole_area=8)  # the card; raises without one
     size = predictor.model.cfg.image_size
@@ -57,9 +62,13 @@ def capture(out_dir: str, num_frames: int, cfg_name: str = "sam2.1_hiera_t512") 
     propagate(prompted())  # captures the frame body's graph
     propagate(prompted())
     state = prompted()
-    with trace(out_dir, modules=predictor.model):
+    profiling.reset_spans()
+    with profiling.trace(out_dir, modules=predictor.model):
         propagate(state)
-    print(f"trace written to {out_dir}", file=sys.stderr)
+    with open(os.path.join(out_dir, "spans.jsonl"), "w") as f:
+        for name, t in profiling.span_totals().items():
+            f.write(json.dumps({"name": name, **t, "parents": {str(p): n for p, n in t["parents"].items()}}) + "\n")
+    print(f"trace and spans written to {out_dir}", file=sys.stderr)
 
 
 def analyze(out_dir: str, top: int = 30, frames: int = 64) -> dict:
@@ -81,6 +90,15 @@ def analyze(out_dir: str, top: int = 30, frames: int = 64) -> dict:
     for n, d in self_op.most_common(top):
         a = args_of.get(n, {})
         print(f"{d / 1e3:9.2f} ms {100 * d / total:5.1f}%  {n[:90]:90s} grid {a.get('grid', '')}")
+    spans_path = os.path.join(out_dir, "spans.jsonl")
+    spans = {}
+    if os.path.exists(spans_path):
+        with open(spans_path) as f:
+            spans = {t.pop("name"): t for t in map(json.loads, f)}
+        print("\n-- by program span (device ms inside graph replays too; utils/profiling.span_totals) --")
+        for name, t in sorted(spans.items(), key=lambda kv: -kv[1]["device_ms"]):
+            print(f"{t['device_ms']:9.2f} ms {100 * t['device_ms'] * 1e3 / total:5.1f}%  {name:24s} "
+                  f"count {t['count']} rows {t['rows']} host {t['host_ms']:.2f} ms parents {t['parents']}")
     summary = {
         "total_ms": total / 1e3,
         "ms_per_tracked_frame": total / tracked / 1e3,
@@ -88,6 +106,7 @@ def analyze(out_dir: str, top: int = 30, frames: int = 64) -> dict:
         "by_module": {m: d / 1e3 for m, d in self_mod.most_common(25)},
         "top_ops": [{"name": n, "ms": d / 1e3, "grid": args_of.get(n, {}).get("grid", "")}
                     for n, d in self_op.most_common(top)],
+        "spans": spans,
     }
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)

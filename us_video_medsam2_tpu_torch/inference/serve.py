@@ -30,6 +30,11 @@ weights and assumes every process holds the same ones; here the first call
 with a given predictor and mesh gathers a digest of each rank's weights and
 raises if two differ.
 
+The stages are the program's spans (``utils/profiling.py``), each with the
+frames or videos it ran as its rows: ``serve.prepare`` (the upload and
+``prep_frames``), ``serve.prompt`` (frame 0 of every video and its memory),
+``serve.replays`` (frames 1 to T-1) and ``serve.fill_holes``.
+
 Not ported: ``prepare_images``' fold (a TPU relayout; ``prep_frames`` takes
 its place).
 
@@ -60,9 +65,9 @@ from us_video_medsam2_tpu_torch.inference.graphs import (
     weight_tensors,
 )
 from us_video_medsam2_tpu_torch.inference.transforms import prep_frames
-from us_video_medsam2_tpu_torch.models.memory_bank import write_memory
 from us_video_medsam2_tpu_torch.ops.connected_components import fill_holes_in_mask_scores
 from us_video_medsam2_tpu_torch.parallel.mesh import all_gather_objects, gather_batch, shard_batch
+from us_video_medsam2_tpu_torch.utils.profiling import span
 
 MAX_COND_SLOTS = 1  # one prompted frame per video
 
@@ -148,25 +153,29 @@ def _serve(predictor, frames: torch.Tensor, coords: torch.Tensor, labels: torch.
     labels [N, P]. Returns low-res mask logits [N, T, 4fs, 4fs]."""
     model = predictor.model
     n, t = frames.shape[:2]
-    bank = predictor._new_bank(n, t)
+    dev = frames.device
 
     # prompt frame 0 of every video at once, then its consolidation
-    feats0 = encode_frames(model, frames[:, 0])
-    out, _ = model.track_step(0, feats0, bank, t, coords, labels, is_init_cond_frame=True, is_cond_frame=True,
-                              multimask_output=multimask, run_mem_encoder=False)
-    maskmem = model.encode_memory(feats0["top"], out["high_res_masks"].float(),
-                                  out["object_score_logits"].float(), is_mask_from_pts=True)
-    write_memory(bank, 0, maskmem.reshape(n, -1, maskmem.shape[-1]), out["obj_ptr"].float(), True)
+    with span("serve.prompt", n, dev):
+        bank = predictor._new_bank(n, t)
+        feats0 = encode_frames(model, frames[:, 0])
+        out, _ = model.track_step(0, feats0, bank, t, coords, labels, is_init_cond_frame=True, is_cond_frame=True,
+                                  multimask_output=multimask, run_mem_encoder=False)
+        model.write_frame_memory(bank, 0, feats0["top"], out["high_res_masks"].float(),
+                                 out["object_score_logits"].float(), out["obj_ptr"].float(), True,
+                                 is_mask_from_pts=True)
 
     if t > 1:
-        lows = _run_window(predictor, bank, frames).clone()  # off the buffer the next call writes
+        with span("serve.replays", n * (t - 1), dev):
+            lows = _run_window(predictor, bank, frames).clone()  # off the buffer the next call writes
     else:
-        lows = torch.empty(1, n, *out["low_res_masks"].shape[-2:], device=frames.device)
+        lows = torch.empty(1, n, *out["low_res_masks"].shape[-2:], device=dev)
     lows[0] = out["low_res_masks"][:, 0].float()
     lows = lows.transpose(0, 1)
     if predictor.fill_hole_area > 0:
-        lows = fill_holes_in_mask_scores(lows.reshape(n * t, 1, *lows.shape[2:]),
-                                         predictor.fill_hole_area).reshape(lows.shape)
+        with span("serve.fill_holes", n * t, dev):
+            lows = fill_holes_in_mask_scores(lows.reshape(n * t, 1, *lows.shape[2:]),
+                                             predictor.fill_hole_area).reshape(lows.shape)
     return lows.contiguous()
 
 
@@ -193,10 +202,11 @@ def batched_propagate(predictor, videos, point_coords, point_labels, mesh=None, 
     if mesh is not None:
         v, coords, labels = (shard_batch(x, mesh, 0, data_axis) for x in (v, coords, labels))
         check_replicated(predictor, mesh)
-    v = v.to(dev)
     n, t = v.shape[:2]
-    frames = prep_frames(v.reshape(n * t, *v.shape[2:]), cfg.image_size)
-    frames = frames.reshape(n, t, *frames.shape[1:])
+    with span("serve.prepare", n * t, dev):
+        v = v.to(dev)
+        frames = prep_frames(v.reshape(n * t, *v.shape[2:]), cfg.image_size)
+        frames = frames.reshape(n, t, *frames.shape[1:])
     coords = torch.as_tensor(coords, device=dev)
     labels = torch.as_tensor(labels, device=dev)
     num_pts = coords.shape[1]

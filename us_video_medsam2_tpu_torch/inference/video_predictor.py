@@ -37,6 +37,14 @@ page-locked buffers (``graphs.ChunkStager``). Editing: ``reset_state``,
 ``prev_low_res_mask``, ``non_overlap_masks`` and the scrub of
 non-conditioning memories around a prompted frame
 (``clear_non_cond_mem_around_input``), as in JAX.
+
+The stages are the program's spans (``utils/profiling.py``):
+``predictor.init_state``, ``predictor.prompt`` (a prompt call),
+``predictor.preflight`` (the prompted frames' memory encode),
+``predictor.replays`` (a chunk's window) and ``predictor.emit`` (each
+``EMIT_CHUNK`` of frames' hole filling, resize and host copy, and each
+prompted frame's; closed before every yield, so the caller's time is never
+inside it).
 """
 
 from __future__ import annotations
@@ -71,11 +79,11 @@ from us_video_medsam2_tpu_torch.models.memory_bank import (
     downgrade_frame,
     init_memory_bank,
     permute_rows,
-    write_memory,
 )
 from us_video_medsam2_tpu_torch.models.sam2 import SAM2Model, apply_non_overlapping_constraints
 from us_video_medsam2_tpu_torch.ops.connected_components import fill_holes_in_mask_scores
 from us_video_medsam2_tpu_torch.ops.resize import resize2d
+from us_video_medsam2_tpu_torch.utils.profiling import span
 
 NO_OBJ_SCORE = -1024.0
 EMIT_CHUNK = 16  # frames hole-filled, resized to the video resolution and copied to the host at once
@@ -177,30 +185,31 @@ class SAM2VideoPredictor:
         float32 gives the resident path's bits)."""
         c = self.cfg
         t = int(images.shape[0])
-        if offload_video_to_host and t_bucket is None:
-            t_bucket = "auto"
-        bucket = t if t_bucket is None else round_bucket(t) if t_bucket == "auto" else int(t_bucket)
-        if bucket < t:
-            raise ValueError(f"t_bucket {bucket} < num_frames {t}")
-        images_host = None
-        if offload_video_to_host:
-            src = images.cpu().numpy() if torch.is_tensor(images) else np.asarray(images)
-            if src.dtype == np.uint8 and src.shape[1:3] == (c.image_size, c.image_size):
-                images_host = np.ascontiguousarray(src)
+        with span("predictor.init_state", t, self.device):
+            if offload_video_to_host and t_bucket is None:
+                t_bucket = "auto"
+            bucket = t if t_bucket is None else round_bucket(t) if t_bucket == "auto" else int(t_bucket)
+            if bucket < t:
+                raise ValueError(f"t_bucket {bucket} < num_frames {t}")
+            images_host = None
+            if offload_video_to_host:
+                src = images.cpu().numpy() if torch.is_tensor(images) else np.asarray(images)
+                if src.dtype == np.uint8 and src.shape[1:3] == (c.image_size, c.image_size):
+                    images_host = np.ascontiguousarray(src)
+                else:
+                    for a in range(0, t, io_chunk):
+                        chunk = torch.from_numpy(np.ascontiguousarray(src[a: a + io_chunk]))
+                        out = prep_frames(chunk, c.image_size).numpy().astype(host_dtype)
+                        if images_host is None:
+                            images_host = np.empty((t, *out.shape[1:]), host_dtype)
+                        images_host[a: a + io_chunk] = out
+                images = None
             else:
-                for a in range(0, t, io_chunk):
-                    chunk = torch.from_numpy(np.ascontiguousarray(src[a: a + io_chunk]))
-                    out = prep_frames(chunk, c.image_size).numpy().astype(host_dtype)
-                    if images_host is None:
-                        images_host = np.empty((t, *out.shape[1:]), host_dtype)
-                    images_host[a: a + io_chunk] = out
-            images = None
-        else:
-            x = torch.as_tensor(np.asarray(images) if not torch.is_tensor(images) else images)
-            images = prep_frames(x.to(self.device), c.image_size)
-        return VideoPredictorState(images=images, video_height=video_height, video_width=video_width,
-                                   num_frames=t, max_objects=max_objects, bank=self._new_bank(max_objects, bucket),
-                                   bucket=bucket, images_host=images_host, offloaded=offload_video_to_host)
+                x = torch.as_tensor(np.asarray(images) if not torch.is_tensor(images) else images)
+                images = prep_frames(x.to(self.device), c.image_size)
+            return VideoPredictorState(images=images, video_height=video_height, video_width=video_width,
+                                       num_frames=t, max_objects=max_objects, bank=self._new_bank(max_objects, bucket),
+                                       bucket=bucket, images_host=images_host, offloaded=offload_video_to_host)
 
     def _new_bank(self, objects: int, slots: int) -> MemoryBank:
         c = self.cfg
@@ -254,43 +263,45 @@ class SAM2VideoPredictor:
         """Returns (frame_idx, obj_ids, video_res_masks [O, 1, H, W] logits as numpy).
         ``prev_low_res_mask`` ([4fs, 4fs] logits, e.g. a frame's earlier
         output) is the decoder's mask prompt beside the clicks."""
-        c = self.cfg
-        hw = (state.video_height, state.video_width)
-        pts_list, lbl_list = [], []
-        if box is not None:
-            bx = np.asarray(box, np.float32).reshape(1, 4)
-            bpts = transform_boxes(bx, hw, c.image_size) if normalize_coords else bx.reshape(1, 2, 2)
-            pts_list.append(bpts.reshape(1, 2, 2))
-            lbl_list.append(np.array([[2, 3]], np.int32))
-        if points is not None:
-            p = np.asarray(points, np.float32).reshape(1, -1, 2)
-            if normalize_coords:
-                p = transform_coords(p, hw, c.image_size)
-            pts_list.append(p)
-            lbl_list.append(np.asarray(labels, np.int32).reshape(1, -1))
-        if not pts_list:
-            raise ValueError("provide points and/or box")
-        coords = torch.as_tensor(np.concatenate(pts_list, axis=1), device=self.device)
-        lbls = torch.as_tensor(np.concatenate(lbl_list, axis=1), device=self.device)
-        num_pts = coords.shape[1]
-        multimask = c.multimask_output_in_sam and c.multimask_min_pt_num <= num_pts <= c.multimask_max_pt_num
-        prev = None
-        if prev_low_res_mask is not None:
-            low = 4 * c.feat_size
-            prev = torch.as_tensor(prev_low_res_mask, dtype=torch.float32).reshape(1, low, low, 1)
-            prev = prev.to(self.device)
-        return self._prompt(state, frame_idx, obj_id, coords, lbls, None, multimask, prev)
+        with span("predictor.prompt", 1, self.device):
+            c = self.cfg
+            hw = (state.video_height, state.video_width)
+            pts_list, lbl_list = [], []
+            if box is not None:
+                bx = np.asarray(box, np.float32).reshape(1, 4)
+                bpts = transform_boxes(bx, hw, c.image_size) if normalize_coords else bx.reshape(1, 2, 2)
+                pts_list.append(bpts.reshape(1, 2, 2))
+                lbl_list.append(np.array([[2, 3]], np.int32))
+            if points is not None:
+                p = np.asarray(points, np.float32).reshape(1, -1, 2)
+                if normalize_coords:
+                    p = transform_coords(p, hw, c.image_size)
+                pts_list.append(p)
+                lbl_list.append(np.asarray(labels, np.int32).reshape(1, -1))
+            if not pts_list:
+                raise ValueError("provide points and/or box")
+            coords = torch.as_tensor(np.concatenate(pts_list, axis=1), device=self.device)
+            lbls = torch.as_tensor(np.concatenate(lbl_list, axis=1), device=self.device)
+            num_pts = coords.shape[1]
+            multimask = c.multimask_output_in_sam and c.multimask_min_pt_num <= num_pts <= c.multimask_max_pt_num
+            prev = None
+            if prev_low_res_mask is not None:
+                low = 4 * c.feat_size
+                prev = torch.as_tensor(prev_low_res_mask, dtype=torch.float32).reshape(1, low, low, 1)
+                prev = prev.to(self.device)
+            return self._prompt(state, frame_idx, obj_id, coords, lbls, None, multimask, prev)
 
     @torch.inference_mode()
     def add_new_mask(self, state: VideoPredictorState, frame_idx: int, obj_id: int, mask):
         """mask: [H, W] bool/float at any resolution (reference add_new_mask:321-408).
         Returns as add_new_points_or_box."""
-        s = self.cfg.image_size
-        m = torch.as_tensor(np.asarray(mask) if not torch.is_tensor(mask) else mask)
-        m = m.to(self.device).float()[None, ..., None]
-        if m.shape[1:3] != (s, s):
-            m = (resize2d(m, (s, s), antialias=True) >= 0.5).float()
-        return self._prompt(state, frame_idx, obj_id, None, None, m, False)
+        with span("predictor.prompt", 1, self.device):
+            s = self.cfg.image_size
+            m = torch.as_tensor(np.asarray(mask) if not torch.is_tensor(mask) else mask)
+            m = m.to(self.device).float()[None, ..., None]
+            if m.shape[1:3] != (s, s):
+                m = (resize2d(m, (s, s), antialias=True) >= 0.5).float()
+            return self._prompt(state, frame_idx, obj_id, None, None, m, False)
 
     def _prompt(self, state, frame_idx, obj_id, coords, labels, mask, multimask, prev=None):
         hw = (state.video_height, state.video_width)
@@ -417,24 +428,25 @@ class SAM2VideoPredictor:
         (reference preflight, sam2_video_predictor.py:627-632)."""
         c = self.cfg
         o = state.max_objects
-        for frame_idx, per_obj in sorted(state.pending.items()):
-            high = torch.full((o, 1, c.image_size, c.image_size), NO_OBJ_SCORE, device=self.device)
-            scores = torch.full((o, 1), NO_OBJ_SCORE, device=self.device)
-            ptrs = torch.zeros(o, c.hidden_dim, device=self.device)
-            low = torch.full((o, 4 * c.feat_size, 4 * c.feat_size), NO_OBJ_SCORE, device=self.device)
-            for oi, rec in per_obj.items():
-                high[oi] = rec["high_res_masks"][0].float()
-                scores[oi] = rec["score"][0].float()
-                ptrs[oi] = rec["obj_ptr"][0].float()
-                low[oi] = rec["low_res_masks"][0, 0].float()
-            feats = state.prompt_feats.pop(frame_idx, None) or self._encode_frame(state, frame_idx)
-            top = feats["top"].expand(o, -1, -1, -1)
-            maskmem = self.model.encode_memory(top, high, scores, is_mask_from_pts=True)
-            write_memory(state.bank, frame_idx, maskmem.reshape(o, -1, maskmem.shape[-1]), ptrs, True)
-            state.cond_low_res[frame_idx] = low
-            if self._clear_enabled(state):
-                clear_window(state.bank, frame_idx, self._clear_radius())
-        state.pending = {}
+        with span("predictor.preflight", len(state.pending), self.device):
+            for frame_idx, per_obj in sorted(state.pending.items()):
+                high = torch.full((o, 1, c.image_size, c.image_size), NO_OBJ_SCORE, device=self.device)
+                scores = torch.full((o, 1), NO_OBJ_SCORE, device=self.device)
+                ptrs = torch.zeros(o, c.hidden_dim, device=self.device)
+                low = torch.full((o, 4 * c.feat_size, 4 * c.feat_size), NO_OBJ_SCORE, device=self.device)
+                for oi, rec in per_obj.items():
+                    high[oi] = rec["high_res_masks"][0].float()
+                    scores[oi] = rec["score"][0].float()
+                    ptrs[oi] = rec["obj_ptr"][0].float()
+                    low[oi] = rec["low_res_masks"][0, 0].float()
+                feats = state.prompt_feats.pop(frame_idx, None) or self._encode_frame(state, frame_idx)
+                top = feats["top"].expand(o, -1, -1, -1)
+                self.model.write_frame_memory(state.bank, frame_idx, top, high, scores, ptrs, True,
+                                              is_mask_from_pts=True)
+                state.cond_low_res[frame_idx] = low
+                if self._clear_enabled(state):
+                    clear_window(state.bank, frame_idx, self._clear_radius())
+            state.pending = {}
 
     @torch.inference_mode()
     def propagate_in_video(self, state: VideoPredictorState, start_frame_idx: Optional[int] = None,
@@ -508,12 +520,15 @@ class SAM2VideoPredictor:
         chunk, c0 = None, 0
         for t in frames:
             if t in state.cond_low_res:
-                video = self._to_video_res(state.cond_low_res[t], hw, self.non_overlap_masks).cpu().numpy()
+                with span("predictor.emit", 1, self.device):
+                    video = self._to_video_res(state.cond_low_res[t], hw, self.non_overlap_masks).cpu().numpy()
             elif t in ran:
                 if chunk is None or not c0 <= t - lo < c0 + len(chunk):
                     c0 = (t - lo) // EMIT_CHUNK * EMIT_CHUNK
-                    filled = fill_holes_in_mask_scores(lows[c0: c0 + EMIT_CHUNK], self.fill_hole_area)
-                    chunk = self._to_video_res(filled, hw, self.non_overlap_masks).cpu().numpy()
+                    part = lows[c0: c0 + EMIT_CHUNK]
+                    with span("predictor.emit", part.shape[0], self.device):
+                        filled = fill_holes_in_mask_scores(part, self.fill_hole_area)
+                        chunk = self._to_video_res(filled, hw, self.non_overlap_masks).cpu().numpy()
                 video = chunk[t - lo - c0]
                 state.frames_tracked[t] = {"reverse": reverse}
             else:
@@ -546,40 +561,41 @@ class SAM2VideoPredictor:
             for t, _ in steps:
                 clear_window(state.bank, t, radius)
             return None
-        frame_dtype = None if precompute else frame_of(steps[0][0]).dtype
-        on_card = self.use_graphs
-        if on_card:
-            graph = self.graphs.get(
-                self._graph_key(state, reverse, mcs, precompute, frame_dtype),
-                lambda: make_buffers(model, state.bank, precompute, new_bank=True, frame_dtype=frame_dtype),
-                lambda b: frame_body(model, b, b.num_frames, reverse, mcs),
-                weight_tensors(model),
-            )
-            bufs = graph.bufs
-        else:
-            bufs = make_buffers(model, state.bank, precompute, new_bank=False, frame_dtype=frame_dtype)
-        bufs.num_frames.fill_(state.num_frames)
-        if precompute:
-            n, nf = self.precompute_batch, state.num_frames
-            for s in range(0, nf, n):
-                for k, v in encode_frames(model, state.images[s: s + n]).items():
-                    bufs.feats[k][s: s + n].copy_(v)
-        if on_card:
-            copy_bank(bufs.bank, state.bank)
-        for t, run in steps:
-            if not run:
-                clear_window(bufs.bank, t, radius)
-                continue
-            bufs.t.fill_(t)
-            if bufs.frame is not None:
-                bufs.frame.copy_(frame_of(t))
+        with span("predictor.replays", sum(run for _, run in steps), self.device):
+            frame_dtype = None if precompute else frame_of(steps[0][0]).dtype
+            on_card = self.use_graphs
             if on_card:
-                graph.replay()
+                graph = self.graphs.get(
+                    self._graph_key(state, reverse, mcs, precompute, frame_dtype),
+                    lambda: make_buffers(model, state.bank, precompute, new_bank=True, frame_dtype=frame_dtype),
+                    lambda b: frame_body(model, b, b.num_frames, reverse, mcs),
+                    weight_tensors(model),
+                )
+                bufs = graph.bufs
             else:
-                frame_body(model, bufs, bufs.num_frames, reverse, mcs)
-        if on_card:
-            copy_bank(state.bank, bufs.bank)
-        return bufs.lows
+                bufs = make_buffers(model, state.bank, precompute, new_bank=False, frame_dtype=frame_dtype)
+            bufs.num_frames.fill_(state.num_frames)
+            if precompute:
+                n, nf = self.precompute_batch, state.num_frames
+                for s in range(0, nf, n):
+                    for k, v in encode_frames(model, state.images[s: s + n]).items():
+                        bufs.feats[k][s: s + n].copy_(v)
+            if on_card:
+                copy_bank(bufs.bank, state.bank)
+            for t, run in steps:
+                if not run:
+                    clear_window(bufs.bank, t, radius)
+                    continue
+                bufs.t.fill_(t)
+                if bufs.frame is not None:
+                    bufs.frame.copy_(frame_of(t))
+                if on_card:
+                    graph.replay()
+                else:
+                    frame_body(model, bufs, bufs.num_frames, reverse, mcs)
+            if on_card:
+                copy_bank(state.bank, bufs.bank)
+            return bufs.lows
 
 
 def build_sam2_video_predictor(config="sam2.1_hiera_t512", state_dict=None, device="cuda",

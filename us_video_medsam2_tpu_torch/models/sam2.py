@@ -8,6 +8,13 @@ ViTDet trunk and its one-level neck (EfficientTAM): ``forward_image``,
 training switches of the JAX package (``is_training``, ``deterministic``).
 NHWC features, [B, N, C] tokens, f32 parameters run in the compute dtype
 (``set_compute_dtype``), NO_OBJ_SCORE = -1024 (sam2_base.py:19).
+
+The four steps of a frame are spans (``utils/profiling.py``), each with the
+batch it ran as its rows, in a CUDA graph's replays as in eager calls:
+``sam2.encoder`` (``forward_image``), ``sam2.memory_attention``
+(``condition_on_memory``), ``sam2.heads`` (``sam_heads``) and
+``sam2.memory_encoder`` (``write_frame_memory``: the encode and the bank
+write).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from us_video_medsam2_tpu_torch.models.temporal_fusion import build_temporal_fus
 from us_video_medsam2_tpu_torch.models.vitdet import ViTDet
 from us_video_medsam2_tpu_torch.ops.posenc import sine_pe_1d, sine_pos_embed_2d
 from us_video_medsam2_tpu_torch.ops.resize import resize2d
+from us_video_medsam2_tpu_torch.utils.profiling import span
 
 NO_OBJ_SCORE = -1024.0
 
@@ -100,17 +108,18 @@ class SAM2Model(nn.Module):
         axis before the high-res projections (sam2_base.py:1249-1262), one
         module a level, zipped against ``fpn[-n:]`` as in JAX; ``gen`` draws
         their training randomness."""
-        out = self.image_encoder(images.to(self.dtype), deterministic)
-        fpn = list(out["backbone_fpn"])
-        if self.n_fusion and num_frames > 1:
-            n = self.n_fusion
-            mods = [getattr(self, f"temporal_fusion_{i}") for i in range(n)]
-            fpn = fpn[:-n] + [tf(f, num_frames, deterministic, gen) for tf, f in zip(mods, fpn[-n:])]
-        if self.cfg.use_high_res_features_in_sam:
-            fpn[0] = self.conv_s0(fpn[0])
-            fpn[1] = self.conv_s1(fpn[1])
-        out["backbone_fpn"] = fpn
-        return out
+        with span("sam2.encoder", images.shape[0], images.device):
+            out = self.image_encoder(images.to(self.dtype), deterministic)
+            fpn = list(out["backbone_fpn"])
+            if self.n_fusion and num_frames > 1:
+                n = self.n_fusion
+                mods = [getattr(self, f"temporal_fusion_{i}") for i in range(n)]
+                fpn = fpn[:-n] + [tf(f, num_frames, deterministic, gen) for tf, f in zip(mods, fpn[-n:])]
+            if self.cfg.use_high_res_features_in_sam:
+                fpn[0] = self.conv_s0(fpn[0])
+                fpn[1] = self.conv_s1(fpn[1])
+            out["backbone_fpn"] = fpn
+            return out
 
     # ------------------------------------------------------- memory attention
     def condition_on_memory(self, frame_idx: int | torch.Tensor, curr_feat: torch.Tensor, bank: MemoryBank,
@@ -122,48 +131,49 @@ class SAM2Model(nn.Module):
         ``frame_idx`` is an int or a 0-d long tensor on the bank's device
         (``select_memories``). ``gen`` draws the attention-dropout seeds when
         ``deterministic`` is False."""
-        c = self.cfg
-        dt = self.dtype
-        b, h, w, ch = curr_feat.shape
-        dev = curr_feat.device
-        sel = select_memories(bank, frame_idx, c, num_frames, track_in_reverse, max_cond_slots,
-                              is_training)
-        mem, ptrs = gather_memories(bank, sel)
-        B, M, HWm, md = mem.shape
-        mem_tokens = mem.reshape(B, M * HWm, md).to(dt)
-        side = int(round(HWm**0.5))
-        spatial_pe = sine_pos_embed_2d(side, side, md, c.memory_encoder.pos_temperature, dev)
-        tpos = self.maskmem_tpos_enc[sel.mem_tpos]
-        mem_pos = (spatial_pe.reshape(1, HWm, md) + tpos[:, None, :]).to(dt)
-        mem_pos = mem_pos[None].expand(B, M, HWm, md).reshape(B, M * HWm, md)
-        mem_mask = sel.mem_valid.repeat_interleave(HWm, dim=1)
+        with span("sam2.memory_attention", curr_feat.shape[0], curr_feat.device):
+            c = self.cfg
+            dt = self.dtype
+            b, h, w, ch = curr_feat.shape
+            dev = curr_feat.device
+            sel = select_memories(bank, frame_idx, c, num_frames, track_in_reverse, max_cond_slots,
+                                  is_training)
+            mem, ptrs = gather_memories(bank, sel)
+            B, M, HWm, md = mem.shape
+            mem_tokens = mem.reshape(B, M * HWm, md).to(dt)
+            side = int(round(HWm**0.5))
+            spatial_pe = sine_pos_embed_2d(side, side, md, c.memory_encoder.pos_temperature, dev)
+            tpos = self.maskmem_tpos_enc[sel.mem_tpos]
+            mem_pos = (spatial_pe.reshape(1, HWm, md) + tpos[:, None, :]).to(dt)
+            mem_pos = mem_pos[None].expand(B, M, HWm, md).reshape(B, M * HWm, md)
+            mem_mask = sel.mem_valid.repeat_interleave(HWm, dim=1)
 
-        num_ptr_tokens = 0
-        memory, memory_pos, key_mask = mem_tokens, mem_pos, mem_mask
-        if c.use_obj_ptrs_in_encoder:
-            P = ptrs.shape[1]
-            tok = c.tokens_per_obj_ptr
-            if c.add_tpos_enc_to_obj_ptrs:
-                tpos_dim = c.hidden_dim if c.proj_tpos_enc_in_obj_ptrs else md
-                ptr_pos = sine_pe_1d(sel.ptr_pos / sel.t_diff_max, tpos_dim)
-                if c.proj_tpos_enc_in_obj_ptrs:
-                    ptr_pos = self.obj_ptr_tpos_proj(ptr_pos.to(dt))
-                ptr_pos = ptr_pos.to(dt)
-            else:
-                ptr_pos = torch.zeros(B, P, md, dtype=dt, device=dev)
-            ptr_tokens = ptrs.reshape(B, P * tok, md).to(dt)
-            num_ptr_tokens = P * tok
-            memory = torch.cat([mem_tokens, ptr_tokens], 1)
-            memory_pos = torch.cat([mem_pos, ptr_pos.repeat_interleave(tok, dim=1)], 1)
-            key_mask = torch.cat([mem_mask, sel.ptr_valid.repeat_interleave(tok, dim=1)], 1)
+            num_ptr_tokens = 0
+            memory, memory_pos, key_mask = mem_tokens, mem_pos, mem_mask
+            if c.use_obj_ptrs_in_encoder:
+                P = ptrs.shape[1]
+                tok = c.tokens_per_obj_ptr
+                if c.add_tpos_enc_to_obj_ptrs:
+                    tpos_dim = c.hidden_dim if c.proj_tpos_enc_in_obj_ptrs else md
+                    ptr_pos = sine_pe_1d(sel.ptr_pos / sel.t_diff_max, tpos_dim)
+                    if c.proj_tpos_enc_in_obj_ptrs:
+                        ptr_pos = self.obj_ptr_tpos_proj(ptr_pos.to(dt))
+                    ptr_pos = ptr_pos.to(dt)
+                else:
+                    ptr_pos = torch.zeros(B, P, md, dtype=dt, device=dev)
+                ptr_tokens = ptrs.reshape(B, P * tok, md).to(dt)
+                num_ptr_tokens = P * tok
+                memory = torch.cat([mem_tokens, ptr_tokens], 1)
+                memory_pos = torch.cat([mem_pos, ptr_pos.repeat_interleave(tok, dim=1)], 1)
+                key_mask = torch.cat([mem_mask, sel.ptr_valid.repeat_interleave(tok, dim=1)], 1)
 
-        curr_pos = sine_pos_embed_2d(h, w, ch, c.neck.pos_temperature, dev).reshape(1, h * w, ch)
-        out = self.memory_attention(
-            curr_feat.reshape(b, h * w, ch), memory, curr_pos.expand(b, -1, -1).to(dt),
-            memory_pos, num_obj_ptr_tokens=num_ptr_tokens, key_mask=key_mask,
-            deterministic=deterministic, gen=gen,
-        )
-        return out.reshape(b, h, w, ch)
+            curr_pos = sine_pos_embed_2d(h, w, ch, c.neck.pos_temperature, dev).reshape(1, h * w, ch)
+            out = self.memory_attention(
+                curr_feat.reshape(b, h * w, ch), memory, curr_pos.expand(b, -1, -1).to(dt),
+                memory_pos, num_obj_ptr_tokens=num_ptr_tokens, key_mask=key_mask,
+                deterministic=deterministic, gen=gen,
+            )
+            return out.reshape(b, h, w, ch)
 
     def no_mem_features(self, curr_feat: torch.Tensor) -> torch.Tensor:
         """Initial conditioning frames skip memory attention (sam2_base.py:1423-1429)."""
@@ -176,70 +186,71 @@ class SAM2Model(nn.Module):
         """Prompt encoder + mask decoder (sam2_base.py:1010-1166). In training
         the single-mask output skips the stability fallback, and a multimask
         output keeps every channel at image resolution for the loss."""
-        c = self.cfg
-        dt = self.dtype
-        b = backbone_features.shape[0]
-        dev = backbone_features.device
-        if point_coords is None:
-            point_coords = torch.zeros(b, 1, 2, device=dev)
-            point_labels = -torch.ones(b, 1, dtype=torch.int32, device=dev)
-        sam_mask_prompt = None
-        if mask_inputs is not None:
-            target = 4 * c.feat_size
-            sam_mask_prompt = mask_inputs
-            if mask_inputs.shape[1] != target:
-                sam_mask_prompt = resize2d(mask_inputs.float(), (target, target), "linear", antialias=True)
-        sparse, dense = self.sam_prompt_encoder(point_coords, point_labels, sam_mask_prompt, dt)
-        out_masks, out_ious, sam_tokens, obj_logits, all_masks, all_ious = self.sam_mask_decoder(
-            backbone_features, self.sam_prompt_encoder.dense_pe(dt), sparse, dense,
-            multimask_output=multimask_output, high_res_features=high_res_features,
-        )
-        if not multimask_output and not is_training and c.dynamic_multimask_via_stability:
-            out_masks, out_ious = dynamic_multimask_via_stability(
-                all_masks, all_ious, c.dynamic_multimask_stability_delta,
-                c.dynamic_multimask_stability_thresh,
+        with span("sam2.heads", backbone_features.shape[0], backbone_features.device):
+            c = self.cfg
+            dt = self.dtype
+            b = backbone_features.shape[0]
+            dev = backbone_features.device
+            if point_coords is None:
+                point_coords = torch.zeros(b, 1, 2, device=dev)
+                point_labels = -torch.ones(b, 1, dtype=torch.int32, device=dev)
+            sam_mask_prompt = None
+            if mask_inputs is not None:
+                target = 4 * c.feat_size
+                sam_mask_prompt = mask_inputs
+                if mask_inputs.shape[1] != target:
+                    sam_mask_prompt = resize2d(mask_inputs.float(), (target, target), "linear", antialias=True)
+            sparse, dense = self.sam_prompt_encoder(point_coords, point_labels, sam_mask_prompt, dt)
+            out_masks, out_ious, sam_tokens, obj_logits, all_masks, all_ious = self.sam_mask_decoder(
+                backbone_features, self.sam_prompt_encoder.dense_pe(dt), sparse, dense,
+                multimask_output=multimask_output, high_res_features=high_res_features,
             )
-        is_obj_appearing = obj_logits > 0
-        if c.pred_obj_scores:
-            out_masks = torch.where(is_obj_appearing[..., None, None], out_masks,
-                                    torch.full_like(out_masks, NO_OBJ_SCORE))
-        low_res_multimasks = out_masks.float()
+            if not multimask_output and not is_training and c.dynamic_multimask_via_stability:
+                out_masks, out_ious = dynamic_multimask_via_stability(
+                    all_masks, all_ious, c.dynamic_multimask_stability_delta,
+                    c.dynamic_multimask_stability_thresh,
+                )
+            is_obj_appearing = obj_logits > 0
+            if c.pred_obj_scores:
+                out_masks = torch.where(is_obj_appearing[..., None, None], out_masks,
+                                        torch.full_like(out_masks, NO_OBJ_SCORE))
+            low_res_multimasks = out_masks.float()
 
-        def upsample(m):  # [B, M, h, w] -> image resolution
-            return resize2d(m.permute(0, 2, 3, 1), (c.image_size, c.image_size)).permute(0, 3, 1, 2)
+            def upsample(m):  # [B, M, h, w] -> image resolution
+                return resize2d(m.permute(0, 2, 3, 1), (c.image_size, c.image_size)).permute(0, 3, 1, 2)
 
-        sam_output_token = sam_tokens[:, 0]
-        if multimask_output:
-            best = out_ious.argmax(-1)
-            rows = torch.arange(b, device=dev)
-            low_res_masks = low_res_multimasks[rows, best][:, None]
-            if sam_tokens.shape[1] > 1:
-                sam_output_token = sam_tokens[rows, best]
-            if is_training:
+            sam_output_token = sam_tokens[:, 0]
+            if multimask_output:
+                best = out_ious.argmax(-1)
+                rows = torch.arange(b, device=dev)
+                low_res_masks = low_res_multimasks[rows, best][:, None]
+                if sam_tokens.shape[1] > 1:
+                    sam_output_token = sam_tokens[rows, best]
+                if is_training:
+                    high_res_multimasks = upsample(low_res_multimasks)
+                    high_res_masks = high_res_multimasks[rows, best][:, None]
+                else:  # the selection commutes with upsampling: upsample the chosen mask only
+                    high_res_masks = upsample(low_res_masks)
+                    high_res_multimasks = high_res_masks
+            else:
                 high_res_multimasks = upsample(low_res_multimasks)
-                high_res_masks = high_res_multimasks[rows, best][:, None]
-            else:  # the selection commutes with upsampling: upsample the chosen mask only
-                high_res_masks = upsample(low_res_masks)
-                high_res_multimasks = high_res_masks
-        else:
-            high_res_multimasks = upsample(low_res_multimasks)
-            low_res_masks, high_res_masks = low_res_multimasks, high_res_multimasks
+                low_res_masks, high_res_masks = low_res_multimasks, high_res_multimasks
 
-        obj_ptr = self.obj_ptr_proj(sam_output_token)
-        if c.pred_obj_scores:
-            lam = torch.sigmoid(obj_logits) if c.soft_no_obj_ptr else is_obj_appearing.to(obj_ptr.dtype)
-            if c.fixed_no_obj_ptr:
-                obj_ptr = lam * obj_ptr
-            obj_ptr = obj_ptr + (1.0 - lam) * self.no_obj_ptr.to(obj_ptr.dtype)
-        return {
-            "low_res_multimasks": low_res_multimasks,
-            "high_res_multimasks": high_res_multimasks,
-            "ious": out_ious,
-            "low_res_masks": low_res_masks,
-            "high_res_masks": high_res_masks,
-            "obj_ptr": obj_ptr,
-            "object_score_logits": obj_logits,
-        }
+            obj_ptr = self.obj_ptr_proj(sam_output_token)
+            if c.pred_obj_scores:
+                lam = torch.sigmoid(obj_logits) if c.soft_no_obj_ptr else is_obj_appearing.to(obj_ptr.dtype)
+                if c.fixed_no_obj_ptr:
+                    obj_ptr = lam * obj_ptr
+                obj_ptr = obj_ptr + (1.0 - lam) * self.no_obj_ptr.to(obj_ptr.dtype)
+            return {
+                "low_res_multimasks": low_res_multimasks,
+                "high_res_multimasks": high_res_multimasks,
+                "ious": out_ious,
+                "low_res_masks": low_res_masks,
+                "high_res_masks": high_res_masks,
+                "obj_ptr": obj_ptr,
+                "object_score_logits": obj_logits,
+            }
 
     def use_mask_as_output(self, backbone_features, high_res_features, mask_inputs) -> dict:
         """Adopt a mask prompt [B, S, S, 1] directly as the output (sam2_base.py:1168-1218)."""
@@ -328,13 +339,20 @@ class SAM2Model(nn.Module):
             out = self.sam_heads(pix_feat, point_coords, point_labels, mi, hr,
                                  multimask_output=multimask_output)
         if run_mem_encoder and c.num_maskmem > 0:
-            maskmem = self.encode_memory(feats["top"], out["high_res_masks"],
-                                         out["object_score_logits"],
-                                         is_mask_from_pts=point_coords is not None)
-            b, hm, wm, md = maskmem.shape
-            write_memory(bank, frame_idx, maskmem.reshape(b, hm * wm, md), out["obj_ptr"],
-                         is_cond_frame or is_init_cond_frame)
+            self.write_frame_memory(bank, frame_idx, feats["top"], out["high_res_masks"], out["object_score_logits"],
+                                    out["obj_ptr"], is_cond_frame or is_init_cond_frame,
+                                    is_mask_from_pts=point_coords is not None)
         return out, bank
+
+    def write_frame_memory(self, bank: MemoryBank, frame_idx: int | torch.Tensor, curr_feat, high_res_masks,
+                           object_score_logits, obj_ptr, is_cond: bool,
+                           is_mask_from_pts: bool | torch.Tensor = False) -> None:
+        """``encode_memory`` of one frame's rows and its write, with ``obj_ptr``,
+        into slot ``frame_idx`` of ``bank`` (in place)."""
+        with span("sam2.memory_encoder", curr_feat.shape[0], curr_feat.device):
+            maskmem = self.encode_memory(curr_feat, high_res_masks, object_score_logits, is_mask_from_pts)
+            b, hm, wm, md = maskmem.shape
+            write_memory(bank, frame_idx, maskmem.reshape(b, hm * wm, md), obj_ptr, is_cond)
 
 
 def apply_non_overlapping_constraints(pred_masks: torch.Tensor) -> torch.Tensor:

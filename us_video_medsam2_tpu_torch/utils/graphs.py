@@ -14,8 +14,12 @@ time. A graph runs on the device of the weights it reads.
 The kernels' launch counters are Python-side: they tick once at capture and
 never at replay. A graph records the counts its capture ticked, takes them
 back off, and adds them on every replay, so a counter keeps meaning
-launches that the device ran. A failed capture or replay raises; nothing
-falls back to the eager body on the card.
+launches that the device ran. The program's spans (``utils/profiling.py``)
+follow the same pattern: a capture records the spans its body opened, with
+their marks inside the graph, and each replay made while spans record adds
+their counts (the replay first writes the marks' flag from the gate). A
+failed capture or replay raises; nothing falls back to the eager body on the
+card.
 
 A graph reads the weights by address. It keeps each weight tensor it read
 alive, so no other tensor takes that memory while it lives, with the
@@ -33,6 +37,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from us_video_medsam2_tpu_torch.kernels import _lib
+from us_video_medsam2_tpu_torch.utils import profiling
 
 # graphs a predictor or a step keeps: forward and reverse of one shape, or
 # its two kernel configurations; past that the least recently used is dropped
@@ -49,8 +54,9 @@ def _version(w: torch.Tensor) -> Optional[int]:
 
 class FrameGraph:
     """One captured body over its buffers ``bufs``, with the launches it
-    captured (by wrapper), the seconds its warm-up and capture took (and
-    the capture's parts) and the bytes its capture added to the pool."""
+    captured (by wrapper), the spans it captured, the seconds its warm-up
+    and capture took (and the capture's parts) and the bytes its capture
+    added to the pool."""
 
     def __init__(self, bufs, weights: Sequence[torch.Tensor] = (), pool=None):
         self.bufs = bufs
@@ -62,6 +68,7 @@ class FrameGraph:
         self.graph = None
         self.outputs = None  # what the captured body returned
         self.counts: Dict[Callable, int] = {}
+        self.spans: list = []  # (name, rows, parent in the body) of each span the capture opened
         self.capture_s = 0.0  # the eager run and the capture
         self.warm_up_s = 0.0  # of which the eager run
         # of which the capture's set-up (synchronize, gc, empty cache), the
@@ -95,14 +102,17 @@ class FrameGraph:
         pool when None), keeping what it returns as ``outputs``, with
         ``generators`` registered (beside the device's default one, which a
         capture always registers); the counters it ticked are recorded and
-        taken back off."""
+        taken back off, and the spans it opened listed."""
         before = read_counts()
         graph = new_graph()
         for g in generators:
             graph.register_generator_state(g)
+        if self.device is not None and torch.is_inference_mode_enabled():
+            profiling.prepare(self.device)  # the table the captured marks write
         t0 = time.perf_counter()
         try:
-            with graph_context(graph) if self.pool is None else graph_context(graph, pool=self.pool):
+            with profiling.capturing() as spans, (
+                    graph_context(graph) if self.pool is None else graph_context(graph, pool=self.pool)):
                 t1 = time.perf_counter()
                 self.outputs = body()
                 t2 = time.perf_counter()
@@ -112,6 +122,7 @@ class FrameGraph:
                 w.launches = n
         self.parts_s = {"set_up": t1 - t0, "record": t2 - t1, "instantiate": time.perf_counter() - t2}
         self.counts = {w: after[w] - n for w, n in before.items() if after[w] != n}
+        self.spans = spans
         self.graph = graph
 
     def reads(self, weights: Sequence[torch.Tensor], versions: bool = True) -> bool:
@@ -122,6 +133,11 @@ class FrameGraph:
             for w, (held, v) in zip(weights, self.weights))
 
     def replay(self) -> None:
+        on = self.spans and profiling.gate_open()
+        if self.spans:
+            profiling.arm(self.device, on)
         self.graph.replay()
         for w, n in self.counts.items():
             w.launches += n
+        if on:
+            profiling.replayed(self.spans)
